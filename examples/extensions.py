@@ -44,7 +44,7 @@ def main() -> None:
     ky, kx = np.unravel_index(int(np.argmax(power)), power.shape)
     print(f"fft2: dominant 2-D bin (ky, kx) = ({ky}, {kx})  [expected (3, 17)]")
 
-    # ── scipy.fft drop-in: same code, complex arrays, TPU path ──────────────
+    # ── scipy.fft drop-in: same code, complex arrays, device path ───────────
     import jax.numpy as jnp
 
     import gpu_fft_tpu.compat as cfft

@@ -6,7 +6,7 @@ through this library's measured transform paths (`rfft_device`), compiled
 into ONE jitted step.  This is the pattern of any spectral-loss training
 setup (vocoders, denoisers, physics surrogates): the FFT sits inside
 `jax.grad`, so it must be differentiable and transposable — including the
-Pallas stage-A kernel sizes (see ``tests/test_autodiff.py``).
+staged large-N sizes (see ``tests/test_autodiff.py``).
 
 Run: python examples/training.py
 """

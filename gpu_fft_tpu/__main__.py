@@ -133,13 +133,13 @@ def main(argv=None) -> int:
     pe.add_argument("-n", type=int, default=65536)
     pe.add_argument("-o", "--output", required=True)
     pe.add_argument("--platforms", default=None,
-                    help="comma-separated lowering platforms, e.g. tpu,cpu")
+                    help="comma-separated lowering platforms, e.g. cuda,cpu")
     ps = sub.add_parser("serve-check", help="load + run an exported artifact")
     ps.add_argument("artifact")
     args = parser.parse_args(argv)
     if args.command != "plan":
         # Persistent compilation cache: repeat CLI invocations skip the
-        # tens-of-seconds first-compile behind a remote-compile transport.
+        # first compile of each transform.
         # (``plan`` is pure arithmetic — it never touches a device.)
         from gpu_fft_tpu.config import enable_compilation_cache
 

@@ -4,7 +4,7 @@ Mirrors the reference's two-level backend system (reference ``src/lib.rs:20-98``
 a ``Backend`` enum dispatched at runtime, with availability gating replacing
 Cargo feature flags.
 
-* ``PALLAS`` — this library's own fused MXU kernels (the analog of the
+* ``PALLAS`` — this library's own matmul transform engine (the analog of the
   reference's CubeCL/wgpu default runtime, ``src/lib.rs:113-117``).
 * ``XLA``    — the vendor-provided FFT (``jnp.fft``), the analog of the
   reference's MLX backend: same API semantics through a platform library

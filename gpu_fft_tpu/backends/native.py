@@ -32,7 +32,7 @@ def lib_path() -> pathlib.Path | None:
     candidates = []
     if override:
         candidates.append(pathlib.Path(override))
-    candidates.append(_REPO_ROOT / "native" / "libtpufft.so")
+    candidates.append(_REPO_ROOT / "native" / "libfftnative.so")
     for c in candidates:
         if c.is_file():
             return c
@@ -46,11 +46,11 @@ def _load():
         return None
     lib = ctypes.CDLL(str(path))
     fp = ctypes.POINTER(ctypes.c_float)
-    # int tpufft_transform(const float* re_in, const float* im_in,
+    # int fftnative_transform(const float* re_in, const float* im_in,
     #                      float* re_out, float* im_out,
     #                      size_t batch, size_t n, int sign)
-    lib.tpufft_transform.argtypes = [fp, fp, fp, fp, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_int]
-    lib.tpufft_transform.restype = ctypes.c_int
+    lib.fftnative_transform.argtypes = [fp, fp, fp, fp, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_int]
+    lib.fftnative_transform.restype = ctypes.c_int
     return lib
 
 
@@ -75,7 +75,7 @@ def _run(xr: np.ndarray, xi: np.ndarray, sign: int) -> tuple[np.ndarray, np.ndar
     yr = np.empty_like(xr)
     yi = np.empty_like(xi)
     fp = ctypes.POINTER(ctypes.c_float)
-    rc = lib.tpufft_transform(
+    rc = lib.fftnative_transform(
         xr.ctypes.data_as(fp),
         xi.ctypes.data_as(fp),
         yr.ctypes.data_as(fp),
@@ -86,7 +86,7 @@ def _run(xr: np.ndarray, xi: np.ndarray, sign: int) -> tuple[np.ndarray, np.ndar
     )
     if rc != 0:
         # Error-code contract mirroring ffi/mlx_fft.c: nonzero = invalid input.
-        raise ValueError(f"tpufft_transform failed with code {rc} (n={n}, batch={b})")
+        raise ValueError(f"fftnative_transform failed with code {rc} (n={n}, batch={b})")
     return yr, yi
 
 

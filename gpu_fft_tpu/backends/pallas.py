@@ -1,4 +1,8 @@
-"""PALLAS backend: jitted device pipelines over the fused MXU kernels.
+"""PALLAS backend: jitted device pipelines over the library's own engine.
+
+The backend keeps its name, but no Pallas kernel remains on its path: every
+stage is plain jnp/lax (kernels/fused_jnp.py, kernels/large.py) that XLA
+compiles for the device.
 
 Plays the role of the reference's transform orchestrators
 (``src/fft.rs:39-133``, ``src/ifft.rs:39-150``), but where the reference

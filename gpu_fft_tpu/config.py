@@ -1,10 +1,10 @@
-"""Global tuning constants and environment plumbing.
+"""Global constants and environment plumbing.
 
 Mirrors the role of the reference's compile-time constants
-(``WORKGROUP_SIZE``/``TILE_SIZE``/``TILE_BITS``, reference ``src/lib.rs:100-111``)
-but sized for TPU: the relevant hardware quantities are the (8, 128) VPU lane
-layout, the 128x128 MXU, and the ~16 MiB/core VMEM working set, not GPU
-workgroup limits.
+(``WORKGROUP_SIZE``/``TILE_SIZE``/``TILE_BITS``, reference ``src/lib.rs:100-111``).
+Here the transform is a chain of dense DFT matmuls, so the constants that
+matter are the size bands of the three transform engines and the precision
+of those matmuls.
 """
 
 from __future__ import annotations
@@ -13,40 +13,32 @@ import os
 
 # ── Transform planning thresholds ────────────────────────────────────────────
 # DIRECT_MAX: largest transform computed as a single DFT matrix multiply
-#   X = x @ F_n  (one MXU matmul over the whole batch of rows).  The DFT matrix
-#   costs 2 * n^2 * 4 bytes of VMEM, so 512 keeps the tables at 2 MiB.
+#   X = x @ F_n (one matmul over the whole batch of rows); the tables cost
+#   2 * n^2 * 4 bytes, 2 MiB at 512.
 DIRECT_MAX = 512
 
-# FUSED_MAX: largest transform run as ONE fused four-step Pallas kernel
-#   (reshape to (n1, n2), DFT columns, twiddle, DFT rows — all resident in
-#   VMEM).  This is the analog of the reference's single-dispatch fused inner
-#   kernel (``butterfly_inner``, reference ``src/butterfly.rs:84-147``), except
-#   the whole transform fuses, not just the first 10 stages.
+# FUSED_MAX: largest transform run as one four-step einsum graph (reshape to
+# (n1, n2), DFT columns, twiddle, DFT rows — kernels/fused_jnp.py), the
+# analog of the reference's single-dispatch fused inner kernel
+# (``butterfly_inner``, reference ``src/butterfly.rs:84-147``).
 FUSED_MAX = 65536
 
 # Maximum supported transform length.  Above FUSED_MAX the transform is
 # factored recursively at the JAX level (kernels/large.py); two balanced
-# levels cover up to FUSED_MAX**2, far beyond the 2**20 target.
+# levels cover up to FUSED_MAX**2.
 MAX_N = 1 << 24
 
-# NOTE: there is deliberately no "engine" flag.  Round 1 shipped a
-# GPU_FFT_TPU_ENGINE dial (jnp vs hand-written Pallas kernels); round 2
-# replaced it with per-size selection measured on hardware and retired the
-# losing kernels — see docs/ABLATION.md and kernels/large.py.
-
 # ── Matmul precision mode ────────────────────────────────────────────────────
-# f32 MXU matmuls are emulated with bf16 passes; the mode trades accuracy
-# for passes (measured on v5e at B=16 N=65,536, forward):
-#   "full"  (default) — 6-pass HIGHEST: rel err ~1.8e-7; the only mode that
-#                       meets the reference's 5*log2(N)*eps roundtrip gate.
-#   "high"  — 3-pass:   rel err ~2e-5, ~2x faster on compute-bound configs
-#                       (30 vs 57-71 us).
-#   "fast"  — 1-pass:   rel err ~4e-3, ~4x faster (16.5 us); for
-#                       magnitude-spectrum/serving workloads only.
-# Process-level: set GPU_FFT_TPU_PRECISION before the first transform (jit
-# caches trace the mode in).  Mosaic supports only DEFAULT/HIGHEST, so under
-# "high" the staged large-N path routes its stage A through the jnp engine
-# (kernels/large.py) — every size gets the same 3-pass compute cut.
+# Every DFT matmul on the transform path names its precision from this mode
+# (an f32 dot that names none may run in TF32 on the GPU):
+#   "full"  (default) — lax.Precision.HIGHEST: fp32 outside the tensor
+#                       cores; the mode that meets the reference's
+#                       5*log2(N)*eps roundtrip gate.
+#   "high"  — lax.Precision.HIGH.
+#   "fast"  — lax.Precision.DEFAULT.
+# What "high" and "fast" lower to on the H100, with their errors and times,
+# is recorded in PERF.md.  Process-level: set GPU_FFT_TPU_PRECISION before
+# the first transform (jit caches trace the mode in).
 PRECISION = os.environ.get("GPU_FFT_TPU_PRECISION", "full").strip().lower()
 if PRECISION not in ("full", "high", "fast"):
     raise ValueError(
@@ -65,44 +57,37 @@ def matmul_precision():
     }[PRECISION]
 
 
-def mosaic_precision():
-    """Pallas-kernel precision: Mosaic lowers only DEFAULT and HIGHEST."""
-    from jax import lax
-
-    return lax.Precision.DEFAULT if PRECISION == "fast" else lax.Precision.HIGHEST
-
 # Use the Gauss/Karatsuba 3-multiplication complex matmul instead of the
-# 4-multiplication form.  Saves 25% of the full-precision MXU passes (the
-# dominant kernel cost); the extra additions introduce a small, bounded
-# cancellation error, validated against the 5*log2(N)*eps roundtrip gate.
+# 4-multiplication form: 25% fewer matmul FLOPs; the extra additions
+# introduce a small, bounded cancellation error, validated against the
+# 5*log2(N)*eps roundtrip gate.
 KARATSUBA = True
 
-def enable_compilation_cache(path: str | None = None) -> str | None:
+# Fallback compile-cache directory: fixed inside the checkout, because the
+# path is part of the cache key (a directory that moves never hits).
+CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
+
+
+def enable_compilation_cache() -> str:
     """Turn on JAX's persistent compilation cache for this process.
 
-    First-compile latency dominates interactive use behind a remote-compile
-    transport (tens of seconds per (shape, direction) variant); the on-disk
-    cache makes every later process start hit warm executables — the analog
-    of CubeCL's documented shader-cache warm-up effect (reference
-    ``README.md:87-89``), made persistent.  Called by the CLI and the bench
-    harnesses; library users can call it via ``gpu_fft_tpu.config``.
-
-    Returns the cache directory, or None if the cache could not be enabled.
+    The analog of CubeCL's documented shader-cache warm-up effect (reference
+    ``README.md:87-89``), made persistent: later processes reuse compiled
+    executables.  When ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it
+    itself and no directory is set here; otherwise the cache lives at
+    :data:`CACHE_DIR`.  Called by the CLI, ``bench.py`` and
+    ``chip_smoke.py``.  Returns the directory in use.
     """
     import jax
 
-    d = path or os.environ.get(
-        "GPU_FFT_TPU_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "gpu_fft_tpu", "xla"),
-    )
-    try:
+    d = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not d:
+        d = CACHE_DIR
         os.makedirs(d, exist_ok=True)
         jax.config.update("jax_compilation_cache_dir", d)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-        return d
-    except Exception:
-        return None
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    return d
 
 
 # ── Environment ──────────────────────────────────────────────────────────────

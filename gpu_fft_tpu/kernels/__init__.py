@@ -1,2 +1,2 @@
-"""TPU compute kernels: DFT/twiddle table generation, fused Pallas transforms,
-and the large-N JAX-level factorization."""
+"""Compute kernels: DFT/twiddle table generation, the fused-size four-step
+einsum graphs, and the large-N staged factorization — all plain JAX."""

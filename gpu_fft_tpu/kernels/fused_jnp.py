@@ -1,21 +1,10 @@
 """Fused-size transforms expressed as plain JAX ops.
 
 Direct DFT matmul (n <= DIRECT_MAX) and the four-step factorization
-(n <= FUSED_MAX) written as jnp ops and left to XLA to fuse and schedule.
-This IS the transform engine for fused sizes: measured head-to-head on v5e
-(interleaved chained timing, scripts/ablate_engines.py), XLA's scheduling of
-this graph beat the round-1 hand-written fused Pallas kernels at every
-(B, n) — 6.7 vs 9.6 us at B=1 N=65536, 72.7 vs 88.1 us at B=16 — because
-per-pallas-call overhead and the kernel's serialized op chain cost more than
-HBM round-trips between XLA fusions.  The losing kernels were retired
-(docs/ABLATION.md); the hand-written kernels that WIN — the large-N stage-A
-column kernel and the fused stage-B+digit-reversal kernel — live in
-kernels/fused.py.  This is the "let XLA fuse — don't hand-schedule what the
-compiler already does" rule in action.
-
-The same measurement retired the fused rfft kernel: the real-input
-four-step here (2-matmul first stage) beat the packed half-transform at
-every candidate size (2.3 vs 5.9 us at n=32768).
+(n <= FUSED_MAX) written as jnp ops and left to XLA to fuse and schedule,
+plus the two stages of the staged large-N path (kernels/large.py).  Every
+matmul names its precision (config.matmul_precision), so none falls to
+TF32 by default.
 """
 
 from __future__ import annotations
@@ -102,11 +91,9 @@ def fused_fft_jnp_folded(xr, xi, plan: FusedPlan):
 
     Same math and tables as :func:`fused_fft_jnp` (stage 1 contracts the
     major digit a via 'bac,ak->bck'; stage 2 contracts c via
-    'bck,cJ->bJk', whose output order IS the natural spectrum).  Measured
-    per-(B, n) against the transpose form on v5e
-    (scripts/ablate_fused_folded.py); the dispatch in kernels/large.py uses
-    whichever won.  Notably at B=1 the folded form cuts small-n latency
-    ~2.4x (n=16384: 1.3 vs 3.1 us) — the transposes were the latency floor.
+    'bck,cJ->bJk', whose output order IS the natural spectrum).  The
+    dispatch in kernels/large.py chooses between the two forms per (B, n)
+    (plan.use_folded_layout).
     """
     b, n = xr.shape
     assert n == plan.n and plan.kind == "fourstep", (n, plan.n, plan.kind)
@@ -147,12 +134,6 @@ def stage_b_jnp(yr, yi, n1: int, n2: int, t: dict):
     Leaving the digit reversal as a separate jnp.swapaxes costs a full HBM
     transpose pass; expressing it as the dot's output order lets XLA assign
     layouts so the natural-order output falls out of the last matmul.
-    Measured on v5e (scripts/ablate_stage_b.py): wins at every staged size
-    (2^18: 21.2 vs 26.1 us; 2^20: 89-99 vs 104-111 us).  A fused Pallas
-    stage-B kernel attempting the same (VMEM transpose + direct natural-
-    order block writes) measured 64.8 us at 2^17 vs 9.4 for this form —
-    Mosaic's lane tiling forces m1 = n2/128 skinny matmuls and two in-VMEM
-    re-rank transposes — and was retired (docs/ABLATION.md §5).
 
     ``yr, yi``: (B, n1, n2) stage-A output.  Returns split-complex (B, n)
     natural-order spectra.  Row digits: position = a1*m2 + a2, output
@@ -224,13 +205,10 @@ def transform_axis0(xr, xi, n: int, sign: int, scale: float | None = None):
 
     The column pass of a 2-D transform (ops/fft2d.py) is the only consumer
     of an axis-0 transform; expressing it as the same four-step
-    contractions with the width as a FREE TRAILING (lane) axis
+    contractions with the width as a FREE TRAILING axis
     ('acw,ak->ckw' then 'ckw,cJ->Jkw', digit reversal folded into the
     output order exactly like fused_fft_jnp_folded) deletes all four
-    relayout passes of the transpose form.  Measured v5e at 4096x4096:
-    column leg 1722 -> 1529 us complex, and the w-minor dots keep the lane
-    axis contiguous (scripts/ablate_fft2_axis0.py for the (h, w) grid the
-    dispatch gate is derived from).
+    transpose passes of the transpose form (gate: plan.axis0_applies).
 
     ``xi`` may be None (real input).  Same tables/plan as the row engines
     (plan.get_fused_plan(n, sign, wide=False)); unnormalized, natural
@@ -248,7 +226,7 @@ def transform_axis0(xr, xi, n: int, sign: int, scale: float | None = None):
     t = plan.tables
 
     if plan.kind == "direct":
-        # One MXU contraction over the column axis; F is symmetric so the
+        # One contraction over the column axis; F is symmetric so the
         # row-engine tables apply unchanged.
         if x3i is None:
             yr = jnp.einsum("bhw,hk->bkw", x3r, t["fr"], precision=_prec())
@@ -295,10 +273,8 @@ def fused_fft_jnp_half(xr, plan: FusedPlan):
     four-step the k1 digit is a batch-major row axis from the twiddle on —
     so slicing to h = n1/2 + 1 rows halves the second matmul stage AND both
     remaining transposes, then one cheap rev+concat epilogue reconstructs
-    the full spectrum (docs/ABLATION.md §13; the PACKED rfft trick was
-    rejected in §11 because its even/odd deinterleave relayouts cost more
-    than the halved matmuls saved — this form reindexes nothing until the
-    final mirror).  Valid for either sign; requires real input.
+    the full spectrum (unlike the packed rfft, this form reindexes nothing
+    until the final mirror).  Valid for either sign; requires real input.
     """
     b, n = xr.shape
     assert plan.kind == "fourstep", plan.kind
@@ -306,10 +282,9 @@ def fused_fft_jnp_half(xr, plan: FusedPlan):
     t = plan.tables
     h = n1 // 2 + 1
     xtr = jnp.swapaxes(xr.reshape(b, n1, n2), 1, 2).reshape(b * n2, n1)
-    # Trace-time column slice of the stage-1 tables: XLA does NOT narrow
-    # the dot through a post-hoc output slice (measured +4-6% at B=1 —
-    # docs/ABLATION.md §13 addendum), so only the h kept k1 columns are
-    # computed explicitly.
+    # Trace-time column slice of the stage-1 tables: XLA does not narrow
+    # the dot through a post-hoc output slice, so only the h kept k1
+    # columns are computed explicitly.
     pr = _dot(xtr, t["f1r"][:, :h])
     pi = _dot(xtr, t["f1i"][:, :h])
     p3r = pr.reshape(b, n2, h)
@@ -335,11 +310,9 @@ def stage_b_half_jnp(yr, yi, n1: int, n2: int, t: dict):
     Same math and tables as :func:`stage_b_jnp`, but the k1 batch axis is
     sliced to h = n1/2 + 1 rows (the k1 = 0 and k1 = n1/2 self-conjugate
     columns are computed directly, so there is no special case), the final
-    einsum emits its NATIVE output order 'bkjJ' (J on lanes — the folded
-    'bJjk' order pads the h-sized minor axis back to a full lane tile and
-    forfeits the halving), and one explicit half-sized transpose performs
-    the digit reversal after the mirror.  Measured v5e at 2^20 B=1:
-    75-77 us vs 90-101 for the full folded form (docs/ABLATION.md §13).
+    einsum emits its native output order 'bkjJ' (the folded 'bJjk' order
+    would put the odd-sized h axis minor), and one explicit half-sized
+    transpose performs the digit reversal after the mirror.
     """
     b = yr.shape[0]
     h = n1 // 2 + 1
@@ -386,11 +359,10 @@ def fused_irfft_jnp(xr, xi, plan: dict):
 
     (c and scale folded into the plan tables).  Costs: stage 1 reads and
     contracts only h1 = n1/2 + 1 grid columns (half); the twiddle acts on
-    half; stage 2 needs only the REAL part — two real einsums over a full
-    n1/2 = MXU-tile contraction plus a rank-1 Nyquist broadcast — and its
+    half; stage 2 needs only the REAL part — two real einsums over an
+    n1/2-deep contraction plus a rank-1 Nyquist broadcast — and its
     'bkm,kM->bMm' output order IS the natural-order signal (zero
-    transposes, zero mirror).  ~2.7x the full inverse's FLOP cut
-    (docs/ABLATION.md §14).
+    transposes, zero mirror).  ~2.7x fewer FLOPs than the full inverse.
 
     ``xr, xi``: (B, n) full split-complex Hermitian spectrum (only the
     k1 <= n1/2 grid columns are read — XLA dead-code-eliminates the rest
@@ -440,7 +412,7 @@ def fused_irfft_half_jnp(xr, xi, plan: dict):
     lo_r = lr[:, :, :h1]
     lo_i = li[:, :, :h1]
     # k2 >= n2/2, k1 in [1, n1/2]: rev over (k2', k1') of the k1 >= n1/2
-    # half — the cheap two-axis reversal form, never a flat lane rev.
+    # half — a two-axis reversal.
     hi_r = lax.rev(lr[:, :, n1 // 2 :], (1, 2))
     hi_i = -lax.rev(li[:, :, n1 // 2 :], (1, 2))
     # k1 = 0 column of the mirrored rows: Nyquist first (k2 = n2/2), then
@@ -475,7 +447,7 @@ def _irfft_fold_core(gr, gi, plan: dict):
         qi = jnp.einsum(eq, ai, plan[prefix + "r"], precision=_prec())
         return pr - pi, qr + qi
 
-    # Stage 1: contract k2 -> m2; k1 rides a major row axis, m2 on lanes.
+    # Stage 1: contract k2 -> m2; k1 rides a major row axis, m2 minor.
     gr_m, gi_m = cm("bck,cm->bkm", gr, gi, "g2")  # (b, h1, n2)
     twr = plan["twr"][None]  # (h1, n2) = [k1, m2]
     twi = plan["twi"][None]
@@ -528,11 +500,10 @@ def rfft_packed_psd_jnp(x, plan: dict):
 def irfft_direct_half_k128_jnp(xr, xi, plan: dict):
     """Lane-exact direct half inverse: K = n/2 dots + Nyquist broadcast.
 
-    Same math as :func:`irfft_direct_half_jnp` but the h-deep contraction
-    (which MXU-pads h = n/2 + 1 up to the next 128-multiple, ~2x the dot
-    cost at n = 256 — the §22 padding signature) is split into exact
-    K = n/2 dots plus the rank-1 Nyquist term ``xr[:, -1:] * alt``, which
-    XLA fuses into the dot epilogue (``plan.get_irfft_direct_k128_plan``)."""
+    Same math as :func:`irfft_direct_half_jnp` but the h = n/2 + 1 deep
+    contraction is split into K = n/2 dots plus the rank-1 Nyquist term
+    ``xr[:, -1:] * alt``, which XLA fuses into the dot epilogue
+    (``plan.get_irfft_direct_k128_plan``)."""
     return (
         _dot(xr[:, :-1], plan["cr"])
         + _dot(xi[:, :-1], plan["ci"])
@@ -569,15 +540,14 @@ def irfft_fold_columns(zr, zi, t: dict):
     """Build the fold's (B, n1, P, h) input from HALF the stage-A columns.
 
     ``zr, zi``: (B, n1, W) — the first W >= n2/2 + 1 post-twiddle stage-A
-    columns (``stage_a(..., col_tiles=G)``).  The remaining columns are
+    columns (``large._stage_a(..., cols=W)``).  The remaining columns are
     conjugate mirrors — Z[k1, n2-c] = conj(Z[k1, c]) exactly (phase proof
     in plan.py:get_stage_b_irfft_plan) — so the p >= P/2 blocks of the
     fold input g[p, q] = Z[p*Q + q], q <= Q/2, reconstruct as pure
     axis-reversals of the computed range:
 
       q in [1, Q/2]: g[p, q] = conj(Z[(P-1-p)*Q + (Q-q)]) — a 2-D rev over
-        (p, q) of the computed blocks' upper-q half (the cheap reversal
-        form, never a flat rev — docs/ABLATION.md §11);
+        (p, q) of the computed blocks' upper-q half;
       q = 0:         g[p, 0] = conj(Z[(P-p)*Q]) — a rev of the block-start
         plane shifted by one block (sources c = Q..(P/2)*Q <= n2/2, all
         within the computed range).
@@ -651,13 +621,13 @@ def stage_b_irfft_from_half(gr, gi, t: dict):
 
 
 def stage_a_jnp(x3r, x3i, plan: dict):
-    """jnp variant of the large-N column-DFT+twiddle stage (engine="jnp").
+    """Stage A of the staged large-N path: column DFT + twiddle.
 
     ``x3*``: (B, n1, n2) views; x3i may be None.  The column DFT is an
     einsum contracting the n1 axis (a left matmul per batch element).
     Accepts either the factored twiddle (the production plan layout — the
     full table is reconstructed here as a jnp op, which XLA fuses into the
-    twiddle multiply) or a legacy materialized (n1, n2) pair.
+    twiddle multiply) or a materialized (n1, n2) pair.
     """
     f1r, f1i = plan["f1r"], plan["f1i"]
     if "two_r" in plan:

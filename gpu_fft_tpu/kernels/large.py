@@ -2,110 +2,75 @@
 
 The reference handles growing N with more outer radix-4 dispatches
 (``src/fft.rs:93-127``) and tops out its benchmarks at N = 65,536.  Here,
-transforms beyond FUSED_MAX run STAGED: a Pallas column-DFT-plus-twiddle
-kernel over the (n1, n2) matrix view (a LEFT matmul — no transposes, the
-column digit never leaves the lane axis), then the row transforms of length
-n2, then the output digit reversal.  This extends coverage to the 2^20+
-range called for by BASELINE.json's north star.
+transforms beyond FUSED_MAX run STAGED over the (n1, n2) matrix view of the
+signal: stage A is the column DFT plus the large-N twiddle (a LEFT matmul,
+so the column digit never moves), stage B the row transforms of length n2
+with the output digit reversal folded into the last einsum's output order.
+This extends coverage to MAX_N = 2^24.
 
-Engine selection is data-driven per size, measured interleaved on hardware
-(scripts/ablate_engines.py, scripts/ablate_large.py; tables in
-docs/ABLATION.md) — not a global flag:
+Every stage is plain ``jnp``/``lax`` that XLA fuses and schedules:
 
-* fused sizes (n <= FUSED_MAX): the XLA-scheduled jnp four-step
-  (kernels/fused_jnp.py) — beat the hand-written fused kernels at every
-  measured (B, n), so those kernels were retired in round 2.
-* stage A: the Pallas kernel (kernels/fused.py) — beats the einsum form
-  at every staged size (2^20: 96.6 vs 128.8 us).
-* stage B: the einsum four-step with the output digit reversal FOLDED into
-  the final dot's output permutation (kernels/fused_jnp.py:stage_b_jnp) —
-  beats row transforms + a separate XLA transpose at every staged size
-  (2^20: 89.1 vs 103.5 us); a fused Pallas version of the same idea lost
-  7x to Mosaic layout constraints and was retired (docs/ABLATION.md §5).
+* fused sizes (n <= FUSED_MAX): the four-step einsum graph
+  (kernels/fused_jnp.py);
+* stage A: :func:`kernels.fused_jnp.stage_a_jnp`, a batched GEMM plus the
+  twiddle reconstructed from its factored tables in one elementwise fusion;
+* stage B: :func:`kernels.fused_jnp.stage_b_jnp`, the einsum four-step with
+  the digit reversal as the final dot's output permutation, so no separate
+  transpose pass over the whole array is needed.
 """
 
 from __future__ import annotations
 
-from functools import partial
-
 import jax
 import jax.numpy as jnp
 
-from .. import config
 from ..config import DIRECT_MAX, FUSED_MAX
 from ..plan import (
     get_fused_plan,
     get_irfft_plan,
     get_pack_tables,
     get_stage_a_plan,
-    get_whole_packed_plan,
-    get_whole_plan,
     half_spectrum_applies,
     irfft_half_applies,
     irfft_half_staged_applies,
     rfft_pack_applies,
     use_folded_layout,
-    whole_kernel_applies,
     wide_split_applies,
 )
-from .fused import stage_a, whole_transform, whole_transform_packed
 from .fused_jnp import (
     fused_fft_jnp,
     fused_fft_jnp_folded,
     fused_fft_jnp_half,
     fused_irfft_jnp,
+    stage_a_jnp,
     stage_b_half_jnp,
-    stage_b_irfft_jnp,
     stage_b_jnp,
 )
 
 __all__ = ["transform_any", "inverse_real", "inverse_real_half"]
 
 
-# ── Autodiff over the Pallas stage-A kernel ───────────────────────────────────
-#
-# Every other op in the transform paths is a jnp graph XLA can differentiate
-# and transpose by itself; the one opaque piece is the stage-A pallas_call.
-# The transform is LINEAR, so its JVP is itself — computed here as the jnp
-# einsum engine (stage_a_jnp), which reverse mode can transpose.  Primal
-# execution keeps the measured kernel; tangent/cotangent passes pay the
-# einsum form's cost.  transform_any's staged path no longer relies on this
-# seam (it routes BOTH AD modes through the measured dispatch via
-# linear_call + the DFT's F^T = F symmetry — see transform_any); this seam
-# remains the AD story for inverse_real's fold paths, whose linear map has
-# no such self-transpose identity.
+def _stage_a(x3r, x3i, plan, rows=None, cols=None):
+    """Stage A over (B, n1, n2) views: column DFT + twiddle.
 
-_STAGE_A_TABLE_KEYS = (
-    "f1r", "f1i", "f1s", "f1d", "two_r", "two_i", "twi_r", "twi_i", "twr", "twi"
-)
-
-
-@partial(jax.custom_jvp, nondiff_argnums=(3, 4, 5, 6, 7))
-def _stage_a_core(x3r, x3i, tabs, n1, n2, ct, rows, col_tiles):
-    t = dict(tabs)
-    t["ct"] = ct
-    return stage_a(x3r, x3i, n1, n2, t, ct, col_tiles=col_tiles, rows=rows)
-
-
-@_stage_a_core.defjvp
-def _stage_a_core_jvp(n1, n2, ct, rows, col_tiles, primals, tangents):
-    x3r, x3i, tabs = primals
-    tx3r, tx3i, _ = tangents
-    y = _stage_a_core(x3r, x3i, tabs, n1, n2, ct, rows, col_tiles)
-    from .fused_jnp import stage_a_jnp
-
-    tyr, tyi = stage_a_jnp(tx3r, None if x3i is None else tx3i, tabs)
+    ``rows`` keeps only the first k1 rows (the f1 and twiddle tables are
+    sliced at trace time, so the GEMM itself shrinks); ``cols`` keeps only
+    the first ``cols`` columns, a multiple of the plan's column tile ``ct``
+    (stage A is column-local, so the input and the outer twiddle factor
+    are sliced instead of the output).
+    """
     if rows is not None:
-        tyr, tyi = tyr[:, :rows, :], tyi[:, :rows, :]
-    if col_tiles is not None:
-        tyr, tyi = tyr[:, :, : col_tiles * ct], tyi[:, :, : col_tiles * ct]
-    return y, (tyr, tyi)
-
-
-def _stage_a_ad(x3r, x3i, plan, rows=None, col_tiles=None):
-    """Differentiable wrapper around the stage-A kernel (see block comment)."""
-    tabs = {k: plan[k] for k in _STAGE_A_TABLE_KEYS if k in plan}
-    return _stage_a_core(x3r, x3i, tabs, plan["n1"], plan["n2"], plan["ct"], rows, col_tiles)
+        plan = dict(plan)
+        for k in ("f1r", "f1i", "two_r", "two_i", "twi_r", "twi_i"):
+            plan[k] = plan[k][:rows]
+    if cols is not None:
+        ct = plan["ct"]
+        plan = dict(plan)
+        plan["two_r"] = plan["two_r"][:, : cols // ct]
+        plan["two_i"] = plan["two_i"][:, : cols // ct]
+        x3r = x3r[:, :, :cols]
+        x3i = None if x3i is None else x3i[:, :, :cols]
+    return stage_a_jnp(x3r, x3i, plan)
 
 
 def inverse_real(xr, xi, n: int, scale: float | None = None):
@@ -117,9 +82,7 @@ def inverse_real(xr, xi, n: int, scale: float | None = None):
     so for n >= tuning.irfft_half_min the conjugate half of the INPUT is
     folded before the matmuls (kernels/fused_jnp.py:fused_irfft_jnp) —
     half the stage-1 contraction, real-only stage 2, natural output order.
-    Measured v5e: 1.11-1.46x at every (B, n) with n >= 2^15; below that
-    the full inverse's better-tiled batched contractions win, so this
-    falls back to ``transform_any`` + drop imag (docs/ABLATION.md §14).
+    Below the gate this falls back to ``transform_any`` + drop imag.
 
     Unnormalized unless ``scale`` is given (1/n for numpy irfft
     semantics); at folded sizes the scale lives in the plan tables (zero
@@ -138,23 +101,16 @@ def inverse_real(xr, xi, n: int, scale: float | None = None):
             b = xr.shape[0]
             plan = get_stage_a_plan(n, +1)
             n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
-            x3r = xr.reshape(b, n1, n2)
-            x3i = xi.reshape(b, n1, n2)
             # Hermitian input makes the post-twiddle stage-A output itself
             # conjugate-symmetric over columns (Z[k1, n2-c] = conj(Z[k1, c]),
             # phase proof in plan.get_stage_b_irfft_plan), so stage A — the
             # dominant staged cost — runs on only the first ceil((n2/2+1)/ct)
             # column tiles and the rest reconstruct as cheap axis-reversals
             # (kernels/fused_jnp.py:irfft_fold_columns).
-            tiles = -(-(n2 // 2 + 1) // ct)
-            if config.PRECISION == "high":
-                from .fused_jnp import stage_a_jnp
-
-                yr, yi = stage_a_jnp(x3r, x3i, plan)
-                yr = yr[:, :, : tiles * ct]
-                yi = yi[:, :, : tiles * ct]
-            else:
-                yr, yi = _stage_a_ad(x3r, x3i, plan, col_tiles=tiles)
+            cols = -(-(n2 // 2 + 1) // ct) * ct
+            yr, yi = _stage_a(
+                xr.reshape(b, n1, n2), xi.reshape(b, n1, n2), plan, cols=cols
+            )
             g_r, g_i = irfft_fold_columns(yr, yi, bt)
             # Per-row Hermitian fold stage B: half the stage-1 contraction,
             # real-only stage 2, digit reversal folded into the output order.
@@ -169,16 +125,13 @@ def inverse_real_half(xr, xi, n: int, scale: float | None = None):
     The entry point for consumers that hold rfft-style half spectra
     (irfft_device, istft).  At direct sizes (n <= DIRECT_MAX) the Hermitian
     symmetry folds into the DFT tables themselves: two real matmuls with
-    contraction h — half the MXU passes of the mirror + full-inverse form
-    and zero mirror relayout (1.4-2.75x measured at every (B, n <= 512),
-    docs/ABLATION.md §16).  Larger n: cheap rev+concat Hermitian
-    reconstruction + :func:`inverse_real`, whose fold dispatch reads back
-    only the k1 <= n1/2 grid columns at fold sizes (so XLA dead-code-
-    eliminates most of the mirror).  DC/Nyquist imaginary parts are
-    ignored (numpy ``irfft`` semantics) on every path.
+    contraction h — half the FLOPs of the mirror + full-inverse form and
+    no mirror pass.  Larger n: cheap rev+concat Hermitian reconstruction +
+    :func:`inverse_real`, whose fold dispatch reads back only the
+    k1 <= n1/2 grid columns at fold sizes (so XLA dead-code-eliminates most
+    of the mirror).  DC/Nyquist imaginary parts are ignored (numpy
+    ``irfft`` semantics) on every path.
     """
-    import jax.numpy as jnp
-
     h = n // 2 + 1
     if xr.shape[-1] != h:
         raise ValueError(f"inverse_real_half expects {h} bins for n={n}, got {xr.shape[-1]}")
@@ -189,24 +142,15 @@ def inverse_real_half(xr, xi, n: int, scale: float | None = None):
         from .fused_jnp import irfft_direct_half_jnp, irfft_direct_half_k128_jnp
 
         if n >= 256 and get_tuning().irfft_direct_k128:
-            # Lane-exact variant: K = n/2 dots + Nyquist broadcast — the
-            # h-deep contraction MXU-pads 129 -> 256; measured 1.43x at
-            # the istft hot shape (253, 256) on v5e (docs/ABLATION.md §25).
+            # K = n/2 dots + the rank-1 Nyquist broadcast instead of one
+            # h = n/2 + 1 deep contraction (tuning.irfft_direct_k128).
             return irfft_direct_half_k128_jnp(xr, xi, get_irfft_direct_k128_plan(n, scale))
         return irfft_direct_half_jnp(xr, xi, get_irfft_direct_plan(n, scale))
-    # NOTE (round 4, scripts/ablate_irfft_fused.py): assembling the
-    # (B, n2, h1) fold grid STRAIGHT from the one-sided bins
-    # (fused_jnp.fused_irfft_half_jnp) was measured and REJECTED — its
-    # revs + concats land on a 129-wide minor axis (odd lane tile), which
-    # costs more than the full mirror's aligned flat-axis concats save
-    # (n=65536: 10.9 vs 8.3 us through the same harness).  The mirror
-    # form below stays the dispatch; the direct-grid engine remains
-    # implemented + oracle-tested for layout-different toolchains.
     # Hermitian reconstruction: X[n-k] = conj(X[k]); DC/Nyquist forced real.
     # The tail rev(x[1:h-1]) equals the first h-2 elements of the flat
-    # reversal of x[:n/2] — a POW2-length reversal that runs as a cheap
-    # (rows, 128) two-axis rev instead of the pathological flat lane
-    # reversal (52-475 us at n=65536 vs ~1 us, docs/ABLATION.md §11).
+    # reversal of x[:n/2], written as a two-axis reversal of a (rows, 128)
+    # view.  (Assembling the fold grid straight from the one-sided bins,
+    # fused_jnp.fused_irfft_half_jnp, is the alternative form.)
     from jax import lax
 
     xi = xi.at[..., 0].set(0.0).at[..., h - 1].set(0.0)
@@ -235,64 +179,22 @@ def transform_any(xr, xi, n: int, sign: int, scale: float | None = None):
         return _real_packed_fft(xr, n, scale)
     if n <= FUSED_MAX:
         b = xr.shape[0]
-        if whole_kernel_applies(b, n) and config.PRECISION != "high":
-            # Latency-bound band: the ENTIRE four-step in ONE pallas_call
-            # (kernels/fused.py:whole_transform) — the reference's
-            # single-dispatch design translated (src/butterfly.rs:84-147).
-            # AD routes through the measured kernel exactly like the staged
-            # path: the DFT is a symmetric complex-linear map (F^T = F), so
-            # the real-form transpose is conj . F_sign . conj; the folded
-            # real ``scale`` carries through the transpose unchanged.
-            # ("high" precision falls through: Mosaic has no 3-pass
-            # lowering, same rule as the staged stage A.)
-            from ..tuning import get_tuning
-
-            if n <= get_tuning().whole_packed_n_max:
-                # Packed single-operand variant: one table DMA issue +
-                # stacked dots — wins where per-operand DMA-issue
-                # serialization dominates (n=1024 on v5e, §24).
-                kern = whole_transform_packed
-                plan = get_whole_packed_plan(n, sign, scale=scale)
-            else:
-                kern = whole_transform
-                plan = get_whole_plan(n, sign, scale=scale)
-            if xi is None:
-                return jax.custom_derivatives.linear_call(
-                    lambda _, x: kern(x, None, plan),
-                    lambda _, ct: kern(ct[0], -ct[1], plan)[0],
-                    (),
-                    xr,
-                )
-
-            def _w_transpose(_, ct):
-                gr, gi = kern(ct[0], -ct[1], plan)
-                return gr, -gi
-
-            return jax.custom_derivatives.linear_call(
-                lambda _, x: kern(x[0], x[1], plan),
-                _w_transpose,
-                (),
-                (xr, xi),
-            )
         if xi is None and half_spectrum_applies(n):
             # Real input at big fused sizes: compute only the k1 <= n1/2
             # spectrum half and mirror the rest (Hermitian symmetry, valid
-            # for either sign) — halves the dominant second matmul and both
-            # trailing transposes; 1.04-1.35x measured at every (B, n) with
-            # n >= 2^15 (docs/ABLATION.md §13).  The gate (>= 2^15) is
-            # above the wide-split region, so the balanced transpose-form
-            # split is always the right base here; ``scale`` folds into the
-            # plan's f2 tables like the full-spectrum forms.
+            # for either sign) — halves the second matmul and both trailing
+            # transposes.  The gate (tuning.half_spectrum_min) is above the
+            # wide-split region, so the balanced transpose-form split is
+            # always the right base here; ``scale`` folds into the plan's
+            # f2 tables like the full-spectrum forms.
             plan = get_fused_plan(n, sign, wide=False, scale=scale)
             if plan.kind == "fourstep":
                 return fused_fft_jnp_half(xr, plan)
-        # Split and layout choices are the shared measured predicates in
-        # plan.py (single source of truth with describe_plan; evidence in
-        # docs/ABLATION.md §7): wide batches take the full-lane n2=128
-        # split; the folded layout (digit reversal as the final einsum's
-        # output permutation, zero transposes) wins everywhere except
-        # single/double-signal big n, where XLA schedules the explicit
-        # transposes better and far more stably (iqr 0.03 vs ~1.5 us).
+        # Split and layout choices are the shared predicates in plan.py
+        # (single source of truth with describe_plan): wide batches take
+        # the n2 = 128 split; the folded layout (digit reversal as the
+        # final einsum's output permutation, zero transposes) is used
+        # except for single/double-signal big n.
         plan = get_fused_plan(n, sign, wide=wide_split_applies(b, n), scale=scale)
         if plan.kind == "fourstep" and use_folded_layout(b, n):
             return fused_fft_jnp_folded(xr, xi, plan)
@@ -300,28 +202,22 @@ def transform_any(xr, xi, n: int, sign: int, scale: float | None = None):
 
     if scale is not None:
         # Staged sizes: explicit epilogue (the fused-size table fold does
-        # not reach the Pallas stage-A tables).
+        # not reach the stage-A tables).
         yr, yi = transform_any(xr, xi, n, sign)
         s = jnp.float32(scale)
         return yr * s, yi * s
 
-    # Staged sizes: route BOTH autodiff modes through the measured kernels.
-    # The stage-A pallas_call has no transpose rule, and letting reverse
-    # mode transpose the einsum tangent graph composes ~2.2x slower than
-    # the shipped dispatch (172 vs 53 us grad at 2^20; docs/ABLATION.md
-    # §12's composition collapse).  The transform is a SYMMETRIC complex-
-    # linear map (DFT matrix: F^T = F), so the real-form transpose is
-    # conj . T . conj — i.e. the same measured transform on the conjugated
-    # cotangent.  linear_call makes the tangent pass f itself and the
-    # transpose the conjugated call, so jvp, vjp, and grad all run the
-    # Pallas dispatch.  linear_call has no vmap rule; the API is already
+    # Staged sizes: both autodiff modes run the same staged dispatch.  The
+    # transform is a SYMMETRIC complex-linear map (DFT matrix: F^T = F), so
+    # the real-form transpose is conj . T . conj — the same transform on
+    # the conjugated cotangent — instead of XLA's transpose of the einsum
+    # tangent graph.  linear_call makes the tangent pass f itself and the
+    # transpose the conjugated call, so jvp, vjp and grad all run the
+    # forward dispatch.  linear_call has no vmap rule; the API is already
     # batched over rows, so vmap over a staged transform is unsupported —
     # fold extra axes into B instead.
     if xi is None:
         # x real: M = [Re F; Im F], so M^T [cr; ci] = Re(F_sign(cr - i*ci)).
-        # (A Hermitian-projection form riding inverse_real was measured and
-        # LOST — 133 vs 96 us at 2^20: the two (rows, 128) mirror+roll
-        # passes cost ~24 us each, eating the fold's savings.)
         return jax.custom_derivatives.linear_call(
             lambda _, x: _staged(x, None, n, sign),
             lambda _, ct: _staged(ct[0], -ct[1], n, sign)[0],
@@ -341,52 +237,22 @@ def transform_any(xr, xi, n: int, sign: int, scale: float | None = None):
 def _staged(xr, xi, n: int, sign: int):
     """The staged (n > FUSED_MAX) dispatch body; see transform_any."""
     b = xr.shape[0]
-    # Full-range stage A: wider column tiles at big n2 (+3-4% at
-    # 2^20/2^22, docs/ABLATION.md §26); the half-range irfft path keeps
-    # the finer default tile (its mirror-skip granularity).
-    from ..plan import stage_a_ct_full_range
-
-    plan = get_stage_a_plan(n, sign, ct=stage_a_ct_full_range(n))
+    plan = get_stage_a_plan(n, sign)
     n1, n2 = plan["n1"], plan["n2"]
-
-    # Real input + half-spectrum stage B: the stage-A output is conjugate-
-    # symmetric over k1 (real x => S[n1-k1, c] = conj(S[k1, c])) and
-    # stage_b_half_jnp reads only k1 <= n1/2, so the kernel computes just
-    # the first ceil-to-sublane(n1/2 + 1) rows — ~0.56x the dominant
-    # stage-A matmul (docs/ABLATION.md §13 addendum).
-    half_rows = None
-    if (
-        xi is None
-        and half_spectrum_applies(n)
-        and plan["stage_b"] is not None
-        and config.PRECISION != "high"
-    ):
-        half_rows = -(-(n1 // 2 + 1) // 8) * 8
-
-    # Stage A: Y[k1, c] = sum_a F1[k1, a] x[a, c] * W_n^(k1*c), one pass.
     x3r = xr.reshape(b, n1, n2)
     x3i = None if xi is None else xi.reshape(b, n1, n2)
-    if config.PRECISION == "high":
-        # Mosaic has no 3-pass lowering, so the Pallas stage-A kernel would
-        # silently run 6-pass HIGHEST under "high" — making the speed dial's
-        # effect size-dependent.  Route stage A through the jnp engine
-        # (which honors lax.Precision.HIGH) so "high" means the same ~2x
-        # compute cut at every size (round-2 verdict item 8).
-        from .fused_jnp import stage_a_jnp
+    half = xi is None and half_spectrum_applies(n) and plan["stage_b"] is not None
 
-        yr, yi = stage_a_jnp(x3r, x3i, plan)
-    else:
-        # Stage A stays the Pallas kernel with the twiddle applied in-kernel:
-        # measured equal to deferring the twiddle into stage B's fusion, and
-        # 1.5x faster than composing XLA's own 2-D dots into the graph — see
-        # docs/ABLATION.md §12 for the full variant matrix.
-        yr, yi = _stage_a_ad(x3r, x3i, plan, rows=half_rows)
+    # Stage A: Y[k1, c] = sum_a F1[k1, a] x[a, c] * W_n^(k1*c).  With real
+    # input and the half-spectrum stage B, the stage-A output is conjugate-
+    # symmetric over k1 (S[n1-k1, c] = conj(S[k1, c])) and stage_b_half_jnp
+    # reads only k1 <= n1/2, so only those n1/2 + 1 rows are computed.
+    yr, yi = _stage_a(x3r, x3i, plan, rows=n1 // 2 + 1 if half else None)
 
     if plan["stage_b"] is not None:
-        if xi is None and half_spectrum_applies(n):
+        if half:
             # Real input: k1 <= n1/2 slice + Hermitian mirror epilogue —
-            # halves stage B's matmuls and the digit-reversal transpose
-            # (1.18-1.31x measured at every staged size, ABLATION.md §13).
+            # halves stage B's matmuls and the digit-reversal transpose.
             return stage_b_half_jnp(yr, yi, n1, n2, plan["stage_b"])
         # Stage B with the digit reversal folded into the final einsum's
         # output permutation — no separate HBM transpose pass.
@@ -413,20 +279,12 @@ def _real_packed_fft(xr, n: int, scale):
         X[k]       = E[k] + W_n^k * O[k]
         X[k + n/2] = E[k] - W_n^k * O[k]
 
-    Halving the transform length halves EVERY matmul stage's FLOPs — on the
-    MXU-pass-bound sizes this is a near-2x wall-clock win (measured v5e,
-    docs/ABLATION.md §11).  The optional ``scale`` (a normalized forward)
-    folds into the half/twiddle factors, costing zero extra passes.
-
-    Data movement is the trap here, not FLOPs — measured v5e (§11):
-
-    * The stride-2 even/odd split as ANY lane-shuffle form (strided slice,
-      reshape+index, stack) costs 35-50 us at n=65536; as a (256, 256)
-      0/1 PERMUTATION MATMUL it costs ~1 us and block-local evens/odds land
-      lane-contiguous, so the global split falls out of two aligned slices.
-    * A flat ``lax.rev`` (or worse, a negative-step slice = gather) costs
-      52-475 us; the SAME reversal reshaped to (rows, 128) and reversed
-      over both trailing axes costs 0.9 us.
+    Halving the transform length halves every matmul stage's FLOPs; the
+    optional ``scale`` (a normalized forward) folds into the half/twiddle
+    factors.  The even/odd split is a (256, 256) 0/1 permutation matmul on
+    block-local views (plan.deinterleave_matrix) followed by two aligned
+    slices; the mirrored index is a reversal of a (rows, 128) view over
+    both trailing axes.  The gate (tuning.rfft_pack_min) is closed.
     """
     from jax import lax
 
@@ -434,8 +292,8 @@ def _real_packed_fft(xr, n: int, scale):
 
     b = xr.shape[0]
     h = n // 2
-    # Even/odd split on the MXU: block-local permutation, then 128-aligned
-    # slices reassemble the global z = x[0::2] + i*x[1::2].
+    # Even/odd split: block-local permutation matmul, then aligned slices
+    # reassemble the global z = x[0::2] + i*x[1::2].
     perm = deinterleave_matrix()
     xp = jnp.dot(
         xr.reshape(b * (n // 256), 256),
@@ -446,10 +304,9 @@ def _real_packed_fft(xr, n: int, scale):
     zr = xp[:, :, :128].reshape(b, h)
     zi = xp[:, :, 128:].reshape(b, h)
     Zr, Zi = transform_any(zr, zi, h, -1)
-    # Mirrored index m(k) = (h - k) mod h = roll(reverse(Z), 1).  The
-    # reversal runs on a (rows, 128) view over BOTH trailing axes (equal to
-    # the flat reversal, but a cheap 2-D relayout instead of a pathological
-    # flat one).
+    # Mirrored index m(k) = (h - k) mod h = roll(reverse(Z), 1); the
+    # reversal runs on a (rows, 128) view over BOTH trailing axes, which
+    # equals the flat reversal.
     rows = max(h // 128, 1)
     Zr_m = jnp.roll(lax.rev(Zr.reshape(b, rows, -1), (1, 2)).reshape(b, h), 1, axis=1)
     Zi_m = jnp.roll(lax.rev(Zi.reshape(b, rows, -1), (1, 2)).reshape(b, h), 1, axis=1)

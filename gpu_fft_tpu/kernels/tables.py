@@ -1,17 +1,16 @@
 """DFT-matrix and twiddle-table generation (host-side, float64).
 
 The reference computes twiddles *inside* each GPU kernel with per-thread
-``cos``/``sin`` calls (reference ``src/butterfly.rs:45-48``).  On TPU,
-transcendentals burn VPU cycles and per-element trig wastes the MXU, so we do
-the opposite: every transform is expressed against precomputed DFT matrices
+``cos``/``sin`` calls (reference ``src/butterfly.rs:45-48``).  Here every
+transform is expressed against precomputed DFT matrices
 and twiddle tables, generated once on the host in float64 (angles reduced
 mod n before the complex exponential for maximum accuracy), rounded to
 float32, and cached on device in split-complex (real, imag) layout — the same
 split layout the reference uses for its buffers (``src/lib.rs:99-105``).
 
 This realizes the reference's abandoned precomputed-twiddle WIP branch
-(``src/twiddles.rs:7-20``) the TPU-native way: tables resident in VMEM feeding
-MXU matmuls instead of an O(N^2) thread grid.
+(``src/twiddles.rs:7-20``): device-resident tables feeding matmuls instead of
+an O(N^2) thread grid.
 """
 
 from __future__ import annotations

@@ -1,21 +1,21 @@
 """Fourier Neural Operators riding the library's device FFT dispatch.
 
 The reference library (eugenehp/gpu-fft) ships transforms; the workload it
-serves downstream is spectral ML — so the TPU-native framework carries the
+serves downstream is spectral ML — so the library carries the
 flagship model family that stresses every hot path at once: the FNO
 (Li et al., "Fourier Neural Operator for Parametric PDEs", ICLR 2021).
-One FNO block is exactly the library's kernel thesis composed with the MXU:
+One FNO block is exactly the library's matmul thesis:
 
-    lift -> [ rfft -> truncate modes -> complex channel-mix (MXU einsum)
+    lift -> [ rfft -> truncate modes -> complex channel-mix (einsum)
               -> zero-pad -> irfft  (+) pointwise 1x1 conv ] x depth
          -> project
 
 Everything inside the block is a batched matmul: the transforms run the
-measured plan dispatch (``kernels/large.py`` — Pallas stage-A + folded
-stage-B at staged sizes, fused einsum four-step below), the channel mix is
-a dense complex contraction, and autodiff rides the library's linear-call
-transpose seam (backward pass = one inverse-family transform, not a
-retraced tangent graph; see ``docs/ABLATION.md`` section 18).
+plan dispatch (``kernels/large.py`` — einsum stage A + folded stage B at
+staged sizes, fused einsum four-step below), the channel mix is a dense
+complex contraction, and autodiff at staged sizes rides the library's
+linear-call transpose seam (backward pass = one inverse-family transform,
+not a retraced tangent graph).
 
 Layout contract: channels-last activations ``(B, spatial..., C)`` as flax
 expects; internally the channel dim folds into the FFT batch so every
@@ -23,8 +23,7 @@ transform is one batched dispatch — the same launch-amortization the
 reference's batch API exists for (reference ``src/fft.rs:117-143``).
 
 Split-complex throughout: spectra are ``(real, imag)`` f32 pairs, matching
-the library ABI — no complex64, which the TPU vector units don't carry
-natively.
+the library ABI — no complex64 on the transform path.
 """
 
 from __future__ import annotations
@@ -45,8 +44,8 @@ def _cmul_mix(yr, yi, wr, wi):
     """Complex channel contraction ``(B, C, *modes) x (C, O, *modes)``.
 
     One complex multiply-accumulate over the channel axis per kept mode:
-    four real einsums, each an MXU-shaped contraction with the mode grid
-    as free lanes.  Split-complex in, split-complex out.
+    four real einsums, each a contraction over channels with the mode grid
+    as free axes.  Split-complex in, split-complex out.
     """
     sub = "xy"[: yr.ndim - 2]
     spec = f"bc{sub},co{sub}->bo{sub}"

@@ -3,7 +3,7 @@
 Functional, optax-based, and mesh-aware: ``make_train_step`` is the
 single-chip jitted step; ``make_data_parallel_step`` is the same step as
 one ``shard_map`` over a named mesh axis — batch sharded, parameters
-replicated, gradients averaged with a single ``pmean`` that rides ICI.
+replicated, gradients averaged with a single ``pmean`` collective.
 The spectral transforms inside the model stay shard-local (each device
 transforms only its own batch rows), so the only collective per step is
 the gradient reduction — the canonical dp layout from the scaling-book

@@ -50,8 +50,7 @@ def _rotation(n: int) -> tuple[np.ndarray, np.ndarray]:
 
 def _flat_rev_pow2(a):
     """Flat last-axis reversal of a (B, m) array with pow2 m >= 128, as a
-    cheap (rows, 128) two-axis ``lax.rev`` instead of the pathological flat
-    lane reversal (52-475 us vs ~1 us at these shapes, docs/ABLATION.md §11)."""
+    (rows, 128) two-axis ``lax.rev`` (equal to the flat reversal)."""
     from jax import lax
 
     b, m = a.shape
@@ -64,12 +63,8 @@ def _makhoul_permute(x):
 
     Pow2 n >= 256 runs the stride-2 deinterleave as a 0/1 PERMUTATION
     MATMUL on (.., 256) blocks + aligned slices (block-local evens/odds
-    land lane-contiguous) and the odd-half reversal as a 2-D tile rev —
-    every lane-shuffle form of this permutation costs ~2 orders of
-    magnitude more (measured, docs/ABLATION.md §11; the permute+unpermute
-    pair was 16.8 us of a 25.8 us DCT roundtrip at (16, 4096) as slices).
-    Other lengths keep the strided-slice + flip form (still never a
-    gather).
+    land contiguous) and the odd-half reversal as a 2-D tile rev.  Other
+    lengths keep the strided-slice + flip form (still never a gather).
     """
     import jax.numpy as jnp
 

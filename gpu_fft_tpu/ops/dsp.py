@@ -385,7 +385,7 @@ def rfftfreq(n: int, d: float = 1.0):
 def next_fast_len(target: int, real: bool = False):
     """Smallest transform length >= target that hits the library's fast path.
 
-    Every transform here is a power-of-two MXU matmul plan (the reference
+    Every transform here is a power-of-two matmul plan (the reference
     pads the same way: ``src/fft.rs:23-27``), so unlike
     ``scipy.fft.next_fast_len`` (5-smooth) this returns the next power of
     two.  ``real`` is accepted for scipy signature compatibility and does

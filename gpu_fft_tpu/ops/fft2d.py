@@ -8,7 +8,7 @@ and like numpy, ANY side length works: power-of-two sides take the direct
 pow2 path, other lengths run exactly via the Bluestein machinery
 (``ops/exact.py``), never by padding.
 
-The reference library has no 2-D transform; this is the natural TPU
+The reference library has no 2-D transform; this is the natural
 extension for image/spectrogram workloads (the row passes batch all H rows
 into single matmul sweeps, exactly the launch-amortization the reference's
 1-D batch path exists for).
@@ -92,8 +92,8 @@ def _transform2d(xr, xi, sign: int):
     rr, ri = _rows(
         xr.reshape(b * h, w), None if xi is None else xi.reshape(b * h, w), w, sign
     )
-    # Columns: axis-0 folded einsums where they measure faster (free
-    # trailing lane axis, zero relayout passes — plan.axis0_applies);
+    # Columns: axis-0 folded einsums where the gate opens (free trailing
+    # axis, zero transpose passes — plan.axis0_applies);
     # otherwise transpose, transform the H-length rows, transpose back.
     from ..kernels.fused_jnp import transform_axis0
     from ..plan import axis0_applies

@@ -6,7 +6,7 @@ signals far longer than one transform: the signal is cut into blocks that
 all ride ONE batched fused transform (the launch-amortization pattern of
 reference ``src/fft.rs:191-205``), multiplied by the kernel's spectrum, and
 re-assembled with a vectorized tail-shift overlap-add (static slices and
-pads only — arbitrary-index scatters run on the TPU scalar core, see
+pads only — no arbitrary-index scatters, see
 ``docs/ALGORITHM.md`` §4d).  The TRANSFORM length stays bounded by the
 block size no matter how long the signal is (working memory is ~3x the
 signal, as for any out-of-place op), unlike
@@ -56,15 +56,11 @@ __all__ = [
 def _best_block_fft_size(lh: int) -> int:
     """Pick the overlap-add block transform length m (a power of two).
 
-    MEASURED rule, not the textbook m·log2(m)/(m−lh+1) cost model: on TPU
-    the fused four-step at n ≤ 16,384 is launch-latency-bound (~2.5 µs
-    flat regardless of n), so fewer, larger blocks win until the block
-    transform turns compute-bound.  m = 16,384 is the optimum at every
-    tap count tried (v5e, 262,144-sample signal: 47/41/43/49 µs for
-    33/257/1,025/4,097 taps, vs 50–63 µs for 8,192 and 32,768 blocks;
-    the old cost model picked 2,048 → 53 µs).  Grown only to keep the
-    length-(lh−1) tail inside one hop (m ≥ 2·next_pow2(lh)).  The floor is
-    the per-chip table's ``oa_block_min`` (tuning.py)."""
+    Not the textbook m·log2(m)/(m−lh+1) cost model: where the block
+    transform is launch-latency-bound, fewer, larger blocks win until it
+    turns compute-bound, so the floor is the per-device table's
+    ``oa_block_min`` (tuning.py; not yet measured on the H100).  Grown only
+    to keep the length-(lh−1) tail inside one hop (m ≥ 2·next_pow2(lh))."""
     from ..tuning import get_tuning
     from .transform import next_power_of_two
 
@@ -140,8 +136,8 @@ def oaconvolve_device(x, h, block: int | None = None):
     cr = xr * hr[:, None, :] - xi * hi[:, None, :]
     ci = xr * hi[:, None, :] + xi * hr[:, None, :]
     # Real-output inverse: folds the Hermitian half of the product spectrum
-    # before the matmuls when the block length clears tuning.irfft_half_min
-    # (docs/ABLATION.md §14); the 1/m normalization rides the plan tables.
+    # before the matmuls when the block length clears tuning.irfft_half_min;
+    # the 1/m normalization rides the plan tables.
     yr = inverse_real(cr.reshape(b * nblocks, m), ci.reshape(b * nblocks, m), m, scale=1.0 / m)
     blocks = yr.reshape(b, nblocks, m)
 
@@ -971,7 +967,7 @@ def _conv2d_boundary(in1, in2, mode, boundary, fillvalue, correlate):
 def choose_conv_method(in1, in2, mode: str = "full", measure: bool = False):
     """Pick 'fft' or 'direct' (``scipy.signal.choose_conv_method``).
     Without ``measure``, a size heuristic (direct only pays off for tiny
-    operands on this engine — the transform path is one batched MXU sweep);
+    operands on this engine — the transform path is one batched matmul sweep);
     with ``measure``, both paths are timed on the actual inputs."""
     x = np.asarray(in1)
     k = np.asarray(in2)

@@ -1,10 +1,10 @@
-"""IIR filtering (``lfilter`` / ``filtfilt`` / ``sosfilt``) — TPU-native.
+"""IIR filtering (``lfilter`` / ``filtfilt`` / ``sosfilt``) on the device.
 
 Extension beyond the reference surface.  An IIR recursion
 ``y[t] = sum_i b[i] x[t-i] - sum_j a[j] y[t-j]`` is sequential by
-definition — the one shape the MXU cannot eat directly.  The classic GPU
-answer (scan over every sample) maps poorly to TPU too: a length-n
-``lax.scan`` of k-vector updates is n sequential VPU steps.
+definition — the one shape a matmul engine cannot eat directly.  The
+plain answer (scan over every sample) is a length-n ``lax.scan`` of
+k-vector updates: n sequential steps.
 
 This module instead uses the **block-state decomposition**: split the
 signal into length-L blocks; inside a block the ZERO-STATE response is a
@@ -160,8 +160,8 @@ def lfilter_device(b, a, x, zi=None, block: int = _BLOCK):
     blocks = xp.reshape(r * nb, L)
     # State/recombination matmuls are tiny (k <= tens) but ERROR-CRITICAL —
     # every block's output rides them, so they run at HIGHEST regardless of
-    # the precision mode (default TPU dot precision is bf16, ~1e-2 state
-    # error at n=2^16; measured before this pin).
+    # the precision mode (a reduced-precision dot gives ~1e-2 state error
+    # at n=2^16).
     hi = lax.Precision.HIGHEST
     # Zero-state response: one batched causal FIR conv over all blocks.
     y_zs = fftfilt_device(blocks, h).reshape(r, nb, L)

@@ -2,13 +2,13 @@
 
 Extension beyond the reference surface.  The classic multirate primitives,
 built on the overlap-add convolution engine (``ops/filter.py``) with every
-rate change expressed as TPU-friendly vector ops: zero-stuffing is an
+rate change expressed as static vector ops: zero-stuffing is an
 interleaving ``stack(...).reshape`` and downsampling is a static strided
 slice — never a gather/scatter (``docs/ALGORITHM.md`` §4d).  Where scipy
-implements these with a streaming polyphase C kernel, the TPU-native
-realization runs the full upsampled convolution through the batched block
-transform: the MXU throughput dwarfs the polyphase arithmetic savings, and
-the shapes stay static for jit.
+implements these with a streaming polyphase C kernel, this realization
+runs the full upsampled convolution through the batched block transform:
+the matmul throughput dwarfs the polyphase arithmetic savings, and the
+shapes stay static for jit.
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ the scipy-ecosystem surface the same way ``compat``/``signal`` do):
   NotImplementedError like scipy)
 * ``fourier_shift``    — separable ``prod_i exp(-2j*pi*f_i*shift_i)``
 
-TPU-first design: the transfer tables are generated host-side in f64 (like
+Design: the transfer tables are generated host-side in f64 (like
 every table in this library — ``kernels/tables.py``) and applied on device
 as split-complex f32 multiplies that XLA fuses into one HBM pass; the
 separable filters stay 1-D per axis (broadcast multiply — never a

@@ -11,7 +11,7 @@ crossings — element-wise parity-tested against scipy in
 
 Pure host-side NumPy, like the reference's CPU utils layer: peak picking
 is a sequential, data-dependent scan (plateau walks, prominence descents)
-— the one workload shape that does NOT belong on the MXU/VPU.  The heavy
+— the one workload shape that does NOT belong on the device.  The heavy
 upstream work (PSD/Welch/spectrogram) runs on device; this consumes their
 small host-side outputs.
 """

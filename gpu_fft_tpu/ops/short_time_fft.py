@@ -1,4 +1,4 @@
-"""ShortTimeFFT: scipy.signal's modern sliding-window FFT class, TPU-backed.
+"""ShortTimeFFT: scipy.signal's modern sliding-window FFT class, device-backed.
 
 API parity with ``scipy.signal.ShortTimeFFT`` (the class that supersedes the
 legacy ``stft``/``istft`` functions): centered sliding windows with signal
@@ -60,7 +60,7 @@ def _canonical_dual(win: np.ndarray, hop: int) -> np.ndarray:
 
 
 class ShortTimeFFT:
-    """Drop-in ``scipy.signal.ShortTimeFFT`` over the TPU transform paths.
+    """Drop-in ``scipy.signal.ShortTimeFFT`` over the device transform paths.
 
     >>> import numpy as np
     >>> from gpu_fft_tpu.ops.short_time_fft import ShortTimeFFT

@@ -8,7 +8,7 @@ falls below ``precision`` — exactly scipy's semantics (pinned empirically
 against ``scipy.signal._spline``: weight tables, add-then-test truncation,
 f32/f64 defaults 1e-6/1e-11, and the non-convergence ValueError).
 
-The recursions themselves ride the library's TPU block-state IIR engine
+The recursions themselves ride the library's block-state IIR engine
 (``ops/iir.py``: batched FFT zero-state convolution + k-vector state scan),
 so 2-D spline transforms (``cspline2d``/``qspline2d``) run as BATCHED
 row/column filters — two device passes per axis instead of scipy's

@@ -78,9 +78,7 @@ def window_table(window, frame_size: int) -> np.ndarray:
 def frame_signal(x, frame_size: int, hop: int, num_frames: int):
     """Extract (num_frames, frame_size) overlapping windows of a 1-D signal.
 
-    TPU-fast path: arbitrary-index gathers run on the scalar core (~300x
-    slower than vector slices at typical sizes — measured 872 vs 2.9 us for
-    255 frames of 256 from 65,536 samples on v5e), so the frames are built
+    Gather-free: the frames are built
     from ``frame_size // gcd(frame_size, hop)`` STATIC strided slices of the
     gcd-chunked signal instead: frames[m] = chunks[m*s + j] for j in
     0..c-1, and for fixed j the m-sweep is one stride-s slice.
@@ -109,9 +107,8 @@ def frame_signal_unordered(x, frame_size: int, hop: int, num_frames: int):
     // hop) of residue g start at ``g*hop + j*frame_size`` — a CONTIGUOUS
     reshape.  The whole framing is then c reshapes + one concatenate
     (contiguous row writes at stream rate) instead of frame_signal's
-    interleaved stack relayout — measured 2.9 -> ~0.6 us for 511 frames of
-    256 at hop 128 on v5e.  Other (frame, hop) shapes fall back to the
-    ordered path.
+    interleaved stack.  Other (frame, hop) shapes fall back to the ordered
+    path.
     """
     import jax.numpy as jnp
 
@@ -130,8 +127,7 @@ def overlap_add(frames, hop: int, total: int):
     """Sum (num_frames, frame_size) rows into a length-``total`` signal at
     ``hop`` spacing: out[m*hop + t] += frames[m, t].
 
-    TPU-fast path: a flat ``.at[idx].add`` scatter runs on the scalar core
-    (measured ~1,100 us for the shapes above); instead each of the
+    Scatter-free: instead of a flat ``.at[idx].add``, each of the
     ``frame_size // gcd`` chunk columns is placed by ONE ``lax.pad`` with
     interior (dilation) padding — stride-s placement as a vector op — and
     the contributions summed.

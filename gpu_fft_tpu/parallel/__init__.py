@@ -2,7 +2,7 @@
 
 The reference is strictly single-device (SURVEY §2.4: no DP/TP/PP/SP, no
 collectives — its only parallelism is intra-kernel threads and packed-batch
-processing).  These modules are the TPU-native scale-out extensions the
+processing).  These modules are the scale-out extensions the
 survey plans anyway:
 
 * ``mesh.py``        — batch ("data-parallel") sharding: embarrassingly
@@ -10,7 +10,7 @@ survey plans anyway:
                        batch buffer (``src/fft.rs:191-205``) across chips.
 * ``distributed.py`` — one transform larger than a single chip: the
                        four-step factorization with the inter-stage
-                       transpose as an ICI all-to-all ("sequence-parallel"
+                       transpose as an all-to-all ("sequence-parallel"
                        axis).
 """
 

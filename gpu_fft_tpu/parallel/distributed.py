@@ -1,6 +1,6 @@
-"""Distributed single-transform FFT: four-step with an ICI all-to-all.
+"""Distributed single-transform FFT: four-step with an all-to-all.
 
-One transform too large for a single chip is factored n = n1 * n2 and laid
+One transform too large for a single device is factored n = n1 * n2 and laid
 out as an (n1, n2) matrix whose COLUMNS are sharded over the mesh axis
 ("sp").  The classic distributed four-step then runs:
 
@@ -8,11 +8,11 @@ out as an (n1, n2) matrix whose COLUMNS are sharded over the mesh axis
   2. local twiddle multiply (each device holds its column slice of the
      twiddle table),
   3. ``lax.all_to_all`` re-shard: columns -> rows (the distributed
-     transpose — the only communication, riding ICI),
+     transpose — the only communication),
   4. local row DFTs of length n2,
 
 returning the spectrum sharded over the k1 digit.  The local DFTs reuse the
-single-chip fused Pallas kernels, so the distributed path is a thin
+single-device transform engine, so the distributed path is a thin
 composition, not a second implementation.  This is the SURVEY §2.4 planned
 extension — the reference has no distributed anything to mirror.
 """
@@ -91,7 +91,7 @@ def _distributed(x3r, x3i, n: int, n1: int, n2: int, sign: int, mesh: Mesh, sp: 
         mesh=mesh,
         in_specs=(in_x, None if x3i is None else in_x, in_tw, in_tw),
         out_specs=(out, out),
-        check_vma=False,  # pallas_call out_shapes don't carry vma annotations
+        check_vma=False,
     )(x3r, x3i, twr, twi)
     return yr, yi
 

@@ -36,7 +36,6 @@ def default_mesh(axis_name: str = "dp", devices=None) -> Mesh:
 
 
 def _shard_map(fn, mesh, in_specs, out_specs):
-    # check_vma=False: pallas_call out_shapes don't carry vma annotations yet.
     return jax.shard_map(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_vma=False)
 
 
@@ -169,7 +168,7 @@ def oaconvolve_sharded(x, h, mesh: Mesh, axis_name: str = "dp"):
     :func:`gpu_fft_tpu.oaconvolve_device`'s batched block path), and the
     only cross-chip dependency is each chunk's length-(lh-1) convolution
     tail, which belongs at the head of the NEXT device's span — one
-    ``lax.ppermute`` neighbor exchange over ICI.  This is the library's
+    ``lax.ppermute`` neighbor exchange.  This is the library's
     point-to-point collective pattern (vs zero-comms batch sharding, the
     all-to-all distributed transform, and the psum Welch reduction).
 
@@ -239,10 +238,10 @@ def lfilter_sharded(b, a, x, mesh: Mesh, axis_name: str = "sp"):
     zero-entry-state filter on its contiguous shard (one call into the
     measured ``lfilter_device``, whose ``zf`` IS the shard's
     input-to-state contribution), one tiny ``all_gather`` of the (d, k)
-    state vectors crosses ICI, every device composes the affine carry
+    state vectors crosses devices, every device composes the affine carry
     prefix with host-precomputed propagator powers F^(m*p) (k x k, f64-
     generated), and a shard-local observability matmul adds the
-    zero-input response.  Per-call ICI traffic is d*k floats — INDEPENDENT
+    zero-input response.  Per-call traffic is d*k floats — INDEPENDENT
     of signal length — the sequential-dependency analog of
     :func:`oaconvolve_sharded`'s tail exchange.
 
@@ -289,7 +288,7 @@ def lfilter_sharded(b, a, x, mesh: Mesh, axis_name: str = "sp"):
 
     def local(xl):
         y_zs, zeta = lfilter_device(bb, aa, xl, zi=jnp.zeros((1, k), jnp.float32))
-        zetas = jax.lax.all_gather(zeta[0], axis_name)  # (d, k) over ICI
+        zetas = jax.lax.all_gather(zeta[0], axis_name)  # (d, k)
         entries = jnp.einsum(
             "ijkl,jl->ik", mask32, zetas, precision=jax.lax.Precision.HIGHEST
         )

@@ -5,7 +5,7 @@ transforms: the (H, W) image lives ROW-sharded over the mesh axis, so
 
   1. each device transforms its own rows (length-W FFTs, all local),
   2. one ``lax.all_to_all`` re-shards to a COLUMN-sharded "pencil"
-     (the distributed transpose — the only communication, riding ICI),
+     (the distributed transpose — the only communication),
   3. each device transforms its own columns (length-H FFTs, local),
   4. a second ``all_to_all`` restores the row-sharded layout.
 
@@ -77,7 +77,7 @@ def _pencil(xr, xi, h: int, w: int, sign: int, mesh: Mesh, sp: str, dp):
         mesh=mesh,
         in_specs=(spec, None if xi is None else spec),
         out_specs=(spec, spec),
-        check_vma=False,  # pallas_call out_shapes don't carry vma annotations
+        check_vma=False,
     )(xr, xi)
     return yr, yi
 

@@ -2,7 +2,7 @@
 
 The reference specializes one compiled kernel per (n, stage, direction,
 batch) tuple via CubeCL comptime parameters and relies on CubeCL's kernel
-cache (reference ``README.md:407-409``).  The TPU analog is a *plan*: for each
+cache (reference ``README.md:407-409``).  The analog here is a *plan*: for each
 (n, direction) we factor the transform, build the f64-accurate DFT/twiddle
 tables once (kernels/tables.py), push them to device, and cache the whole
 bundle.  ``jax.jit`` then specializes the compiled executable per input shape
@@ -27,22 +27,21 @@ __all__ = ["FusedPlan", "get_fused_plan", "balanced_split", "describe_plan"]
 
 
 # ── Shared dispatch predicates ───────────────────────────────────────────────
-# Single source of truth for the measured per-(B, n) selection; used by BOTH
-# the real dispatch (kernels/large.py) and describe_plan, so the
-# introspection can never drift from reality.  The constants live in the
-# per-chip tuning table (tuning.py, round-2 verdict item 5); evidence for
-# the v5e row: docs/ABLATION.md.
+# Single source of truth for the per-(B, n) selection; used by BOTH the
+# real dispatch (kernels/large.py) and describe_plan, so the introspection
+# can never drift from reality.  The constants live in the per-device
+# tuning table (tuning.py).
 
 
 def wide_split_applies(b: int, n: int) -> bool:
-    """Wide batches use the full-lane n2 = 128 split (measured §7 addendum)."""
+    """Wide batches use the n2 = 128 split (tuning.wide_*)."""
     t = get_tuning()
     return b >= t.wide_batch_min and t.wide_n_min <= n <= t.wide_n_max
 
 
 def use_folded_layout(b: int, n: int) -> bool:
     """Folded layout (digit reversal in the final einsum's output
-    permutation) wins except at single/double-signal big n (§7)."""
+    permutation) except at single/double-signal big n (tuning.folded_*)."""
     t = get_tuning()
     return n <= t.folded_n_max or b >= t.folded_batch_min
 
@@ -51,9 +50,9 @@ def rfft_pack_applies(b: int, n: int) -> bool:
     """Real-input packing: compute the length-n real forward transform as
     ONE length-n/2 complex transform plus an O(n) recombination.
 
-    Halves every matmul stage's FLOPs — the decisive lever wherever the
-    transform is MXU-pass-bound (measured v5e, docs/ABLATION.md §11); below
-    the threshold the recombination's extra elementwise passes dominate.
+    Halves every matmul stage's FLOPs at the price of extra elementwise
+    passes for the recombination (tuning.rfft_pack_min; the gate is
+    closed).
     """
     return n >= get_tuning().rfft_pack_min
 
@@ -67,17 +66,15 @@ def irfft_half_applies(n: int) -> bool:
     Halves the first matmul stage AND reads only half the spectrum; the
     second stage needs only the REAL part — two real matmuls instead of
     four — with the natural output order falling out of the einsum (zero
-    transposes, zero mirror).  ~2.7x FLOP cut vs the full complex inverse
-    (docs/ABLATION.md §14).
+    transposes, zero mirror).  ~2.7x FLOP cut vs the full complex inverse.
     """
     return n >= get_tuning().irfft_half_min
 
 
 def irfft_half_staged_applies(n: int) -> bool:
     """Staged real-output inverses run half-column stage A + the per-row
-    stage-B fold from this size up (docs/ABLATION.md §14 addendum: 1.11x
-    at 2^18 rising to 1.28x at 2^22; neutral at 2^17, where the column-tile
-    granularity leaves stage A whole)."""
+    stage-B fold from this size up (tuning.irfft_half_staged_min; at 2^17
+    the column-tile granularity leaves stage A whole)."""
     return n >= get_tuning().irfft_half_staged_min
 
 
@@ -86,12 +83,7 @@ def axis0_applies(h: int, w: int) -> bool:
     (kernels/fused_jnp.py:transform_axis0) instead of
     transpose -> row transform -> transpose back.
 
-    OFF by default on every current chip: the isolated-harness win
-    (1.03-1.13x, scripts/ablate_fft2_axis0.py) turned out to be a
-    loop-carry layout artifact — composed through fft2_device the form
-    loses 0.57-0.87x (docs/ABLATION.md §19).  The gate and engine stay so
-    a re-calibration on a layout-different chip/toolchain can re-open it
-    without code changes."""
+    Closed in every tuning row (tuning.axis0_*)."""
     t = get_tuning()
     return (
         h & (h - 1) == 0
@@ -106,12 +98,10 @@ def half_spectrum_applies(n: int) -> bool:
     mirror the rest (Hermitian symmetry: X[n-k] = conj(X[k]) for real input,
     either sign).
 
-    Unlike the packed-rfft trick (§11, rejected: its even/odd deinterleave
-    relayouts cost more than the halved matmuls save), this slices the k1
-    digit AFTER the twiddle, where it is a batch-major row axis — halving the
-    second matmul stage and the trailing transposes with zero reindexing
-    until one cheap rev+concat mirror epilogue (measured v5e: 1.18-1.35x at
-    every (B, n) with n >= 2^15, docs/ABLATION.md §13).
+    Unlike the packed-rfft trick, this slices the k1 digit AFTER the
+    twiddle, where it is a batch-major row axis — halving the second matmul
+    stage and the trailing transposes with zero reindexing until one cheap
+    rev+concat mirror epilogue (tuning.half_spectrum_min).
     """
     return n >= get_tuning().half_spectrum_min
 
@@ -133,10 +123,9 @@ def deinterleave_matrix() -> np.ndarray:
     """(256, 256) 0/1 permutation: block-local even/odd separation.
 
     Right-multiplying a (rows, 256) view sends each row's even elements to
-    columns 0..127 and odds to 128..255 — the MXU does in ~1 us what every
-    lane-shuffle formulation of a stride-2 deinterleave costs 35-50 us
-    (measured v5e, docs/ABLATION.md §11): arbitrary lane relayouts are
-    pathological, permutation matmuls are native.
+    columns 0..127 and odds to 128..255: a stride-2 deinterleave written as
+    an exact 0/1 matmul (used by the packed rfft and the Makhoul DCT
+    permutation).
     """
     p = np.zeros((256, 256), dtype=np.float32)
     for src in range(256):
@@ -157,7 +146,7 @@ def balanced_split(n: int) -> tuple[int, int]:
 
     A balanced split minimizes both the matmul FLOPs (N * (n1 + n2) complex
     MACs) and the table footprint (n1^2 + n2^2 + n1*n2 complex entries), and
-    keeps the MXU contraction dimensions as large as possible.
+    keeps both contraction dimensions as large as possible.
     """
     if n & (n - 1):
         raise ValueError(f"balanced_split requires a power of two, got {n}")
@@ -188,11 +177,10 @@ class FusedPlan:
 
 @functools.lru_cache(maxsize=None)
 def get_fused_plan(n: int, sign: int, wide: bool = False, scale: float | None = None) -> FusedPlan:
-    """``wide=True`` selects the wide-batch split (n2 = 128): measured on
-    v5e, a full-lane contraction in the dominant second matmul beats the
-    FLOP-minimizing balanced split once the batch supplies enough rows
-    (e.g. B=64 n=4096: 11.0 us vs 18.2; B=256: 30.9 vs 68.3), while the
-    balanced split stays ahead for small batches.
+    """``wide=True`` selects the wide-batch split (n2 = 128): a 128-deep
+    contraction in the dominant second matmul instead of the FLOP-minimizing
+    balanced split, for batches that supply enough rows
+    (plan.wide_split_applies).
 
     ``scale`` (e.g. the inverse's 1/n) is folded into the LAST matmul's
     table, so normalized transforms cost zero extra HBM passes.  Exact in
@@ -211,7 +199,7 @@ def get_fused_plan(n: int, sign: int, wide: bool = False, scale: float | None = 
         # Tables are cached as NumPy arrays: jit lifts them into the traced
         # program as device-resident constants, and caching device/tracer
         # objects across traces would leak tracers.  The sum/diff variants
-        # feed the 3-multiplication complex matmul (kernels/fused.py).
+        # feed the 3-multiplication complex matmul (config.KARATSUBA).
         tables = {"fr": fr * k, "fi": fi * k, "fs": fs * k, "fd": fd * k}
         return FusedPlan(n=n, sign=sign, kind="direct", n1=n, n2=1, tables=tables)
 
@@ -222,7 +210,7 @@ def get_fused_plan(n: int, sign: int, wide: bool = False, scale: float | None = 
     f1r, f1i, f1s, f1d = dft_matrix_ext(n1, sign)
     f2r, f2i, f2s, f2d = dft_matrix_ext(n2, sign)
     # Twiddle oriented (n2, n1): applied to the intermediate indexed
-    # [n2, k1] right after the column DFT (see kernels/fused.py).
+    # [n2, k1] right after the column DFT (see kernels/fused_jnp.py).
     twr, twi = twiddle_table(n2, n1, n, sign)
     tables = {
         "f1r": f1r, "f1i": f1i, "f1s": f1s, "f1d": f1d,
@@ -230,107 +218,6 @@ def get_fused_plan(n: int, sign: int, wide: bool = False, scale: float | None = 
         "twr": twr, "twi": twi,
     }
     return FusedPlan(n=n, sign=sign, kind="fourstep", n1=n1, n2=n2, tables=tables)
-
-
-def whole_kernel_applies(b: int, n: int) -> bool:
-    """Whether a (b, n) fused-size transform runs as ONE Pallas kernel.
-
-    The latency-bound band (B small, n = 1024..16384 on v5e) spends half
-    its time on kernel-launch overhead: the XLA-scheduled four-step
-    compiles to ~11 fusions, and 11 launches cost more than the math
-    (BENCH_DETAILS: fft_n1024 2.44 us vs a 1.21 us 11-kernel launch floor).
-    Fusing the whole transform into one pallas_call is the TPU translation
-    of the reference's single-dispatch design for N <= 1024
-    (``butterfly_inner``, reference src/butterfly.rs:84-147, launch table
-    README.md:397-405).  Above the batch/size gate the XLA graph's
-    better-overlapped big matmuls win and this stays off (the round-2
-    lesson: don't hand-schedule what the compiler schedules better —
-    unless launch latency IS the bound).
-    """
-    t = get_tuning()
-    return (
-        t.whole_n_min <= n <= t.whole_n_max
-        and b <= t.whole_batch_max
-        and n % 128 == 0
-        and n >= 1024
-    )
-
-
-@functools.lru_cache(maxsize=None)
-def get_whole_plan(n: int, sign: int, scale: float | None = None) -> dict:
-    """Tables for the single-kernel whole-transform (kernels/fused.py:
-    whole_transform), oriented for the kernel's in-VMEM dataflow.
-
-    Layout (all f64-generated f32, DFT matrices symmetric so no transposed
-    copies are needed):
-
-      * x viewed (n1, n2) = [a, c] with n2 = 128 (the lane width; n1 = n/128
-        keeps stage 2's contraction a full MXU tile).
-      * ``f1*``  — (n1, n1) ext group: P[k1, c] = sum_a F1[k1, a] x[a, c],
-        a LEFT matmul (the c digit never leaves the lane axis).
-      * ``twr/twi`` — (n1, n2) = [k1, c] twiddle W_n^(sign k1 c).
-      * ``f2*``  — (n2, n2) ext group with ``scale`` folded in; the kernel
-        contracts c against Z's LANE axis (out[j, k1] = sum_c F2[j, c]
-        Z[k1, c]), so the (n2, n1) output block IS the natural-order
-        spectrum when flattened (k = k1 + n1*j).
-    """
-    if n % 128 or n < 1024:
-        raise ValueError(f"whole-kernel plans need n = 128*k >= 1024, got {n}")
-    if n > FUSED_MAX:
-        raise ValueError(f"n={n} exceeds FUSED_MAX={FUSED_MAX}")
-    n2 = 128
-    n1 = n // n2
-    k = np.float32(1.0) if scale is None else np.float32(scale)
-    f1r, f1i, f1s, f1d = dft_matrix_ext(n1, sign)
-    f2r, f2i, f2s, f2d = dft_matrix_ext(n2, sign)
-    twr, twi = twiddle_table(n1, n2, n, sign)
-    return {
-        "n1": n1, "n2": n2,
-        "f1r": f1r, "f1i": f1i, "f1s": f1s, "f1d": f1d,
-        "f2r": f2r * k, "f2i": f2i * k, "f2s": f2s * k, "f2d": f2d * k,
-        "twr": twr, "twi": twi,
-    }
-
-
-@functools.lru_cache(maxsize=None)
-def get_whole_packed_plan(n: int, sign: int, scale: float | None = None) -> dict:
-    """Single-operand table buffer for the PACKED whole-transform kernel
-    (kernels/fused.py:whole_transform_packed).
-
-    The measured pallas probes (scripts/calibrate_latency.py, v5e
-    2026-08) showed a minimal pallas_call costs 0.39 us while the
-    7-operand whole kernel costs 2.34 us at n=1024 — the gap is serial
-    per-operand DMA issue plus 5 serial small dots.  This plan packs
-    every table into ONE (4*n1 + 256, 128) f32 buffer (one DMA issue)
-    laid out for 3 stacked dots (real input; 4 complex):
-
-      * rows [0, 2n1): ``[F1r; F1i]`` left-padded into 128 lanes (cols
-        [0, n1) live) — stage 1 runs as ONE (2n1, n1) @ (n1, 128) dot
-        producing [Pr; Pi] stacked on the sublane axis.
-      * rows [2n1, 4n1): ``[TWr; TWi]`` (n1, 128) each.
-      * rows [4n1, 4n1+256): ``[F2r; F2i]`` with ``scale`` folded in —
-        stage 2 runs as TWO both-minor-axes dots F2 (256, 128) against
-        Zr and Zi, the real/imag products split by static row slices
-        (schoolbook; the Karatsuba 3-dot form loses here because dot
-        COUNT, not FLOPs, is the serial bottleneck at these sizes).
-    """
-    if n % 128 or n < 1024:
-        raise ValueError(f"whole-kernel plans need n = 128*k >= 1024, got {n}")
-    if n > FUSED_MAX:
-        raise ValueError(f"n={n} exceeds FUSED_MAX={FUSED_MAX}")
-    n2 = 128
-    n1 = n // n2
-    k = np.float32(1.0) if scale is None else np.float32(scale)
-    f1r, f1i, _, _ = dft_matrix_ext(n1, sign)
-    f2r, f2i, _, _ = dft_matrix_ext(n2, sign)
-    twr, twi = twiddle_table(n1, n2, n, sign)
-    f1_stack = np.zeros((2 * n1, 128), np.float32)
-    f1_stack[:n1, :n1] = f1r
-    f1_stack[n1:, :n1] = f1i
-    packed = np.concatenate(
-        [f1_stack, twr, twi, f2r * k, f2i * k], axis=0
-    ).astype(np.float32)
-    return {"n1": n1, "n2": n2, "packed": packed}
 
 
 @functools.lru_cache(maxsize=None)
@@ -351,8 +238,8 @@ def get_irfft_plan(
       * ``twr/twi`` — (h1, n2) twiddle w_n^{+k1 m2}, h1 = n1/2 + 1.
       * ``w1r/w1i`` — (n1/2, n1) final stage w_{n1}^{+m1 k1} with the
         c_k1 weights AND ``scale`` folded in; rows k1 in [0, n1/2) keep the
-        contraction a full MXU tile (the +1th Nyquist row would pad the
-        contraction from n1/2 to the next 128 multiple).
+        contraction a power of two (the Nyquist row is the rank-1 ``alt``
+        term instead).
       * ``alt`` — (n1,) scale * (-1)^m1: the k1 = n1/2 Nyquist column's
         stage-2 factor is real, so its contribution is a rank-1 broadcast.
 
@@ -404,10 +291,8 @@ def get_irfft_direct_plan(n: int, scale: float | None = None) -> dict:
         x = xr @ cr + xi @ ci,   cr[k, m] = s*c_k*cos(2*pi*k*m/n),
                                  ci[k, m] = -s*c_k*sin(2*pi*k*m/n)
 
-    — contraction h instead of n (half the MXU passes of the DCE'd full
-    inverse) and NO Hermitian-mirror relayout at all.  Measured v5e:
-    1.4-2.75x over mirror + full inverse at every (B, n <= 512)
-    (docs/ABLATION.md §16).  The sin rows at k = 0 and k = n/2 are exactly
+    — contraction h instead of n (half the FLOPs of the full inverse) and
+    no Hermitian-mirror pass at all.  The sin rows at k = 0 and k = n/2 are exactly
     zero (angles reduced mod n in int64 first), so stray imaginary parts in
     the DC/Nyquist bins are ignored — numpy ``irfft`` semantics — with no
     masking pass.  ``scale`` (e.g. 1/n) folds into the tables: zero extra
@@ -433,8 +318,8 @@ def get_irfft_direct_plan(n: int, scale: float | None = None) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def get_rfft_direct_packed_plan(n: int, scale: float | None = None) -> dict:
-    """ONE-dot direct real forward (round-5 §27 follow-on, gate closed
-    pending measurement): pack the one-sided cos table and the INTERIOR
+    """ONE-dot direct real forward (no dispatch gate routes to it yet):
+    pack the one-sided cos table and the INTERIOR
     sin columns into a single (n, n) table
 
         T = [ C (n, h) | S[:, 1:h-1] (n, h-2) ],   h = n/2 + 1
@@ -442,8 +327,8 @@ def get_rfft_direct_packed_plan(n: int, scale: float | None = None) -> dict:
     so ``out = x @ T`` yields columns [0, h) = Re X[0..h) and columns
     [h, n) = Im X[1..h-1) — the sin columns at k = 0 and n/2 are exactly
     zero and carry no information (real input ⇒ Im X[0] = Im X[n/2] = 0).
-    Replaces the 2-dot direct form (each padded to the full lane grid)
-    with ONE unpadded (n, n) dot; consumers that reduce re² + im²
+    Replaces the 2-dot direct form with ONE (n, n) dot; consumers that
+    reduce re² + im²
     (welch/psd/spectrogram) can consume the packed layout without any
     unpack pass.
     """
@@ -465,20 +350,18 @@ def get_rfft_direct_packed_plan(n: int, scale: float | None = None) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def get_irfft_direct_k128_plan(n: int, scale: float | None = None) -> dict:
-    """Lane-exact variant of :func:`get_irfft_direct_plan` (round 5, §25).
+    """Power-of-two-deep variant of :func:`get_irfft_direct_plan`.
 
-    The (h = n/2 + 1)-deep contraction of the direct fold pads to the next
-    128-multiple on the MXU (h = 129 -> K = 256: the §22 signature, ~2x
-    the dot cost).  But the Nyquist row needs no dot at all: its sin row
-    is exactly zero and its cos row is s*(-1)^m, so
+    The direct fold contracts h = n/2 + 1 bins, one more than a power of
+    two.  But the Nyquist row needs no dot at all: its sin row is exactly
+    zero and its cos row is s*(-1)^m, so
 
         x = xr[:, :h-1] @ cr' + xi[:, :h-1] @ ci' + xr[:, h-1:] * alt
 
-    with cr'/ci' the first h-1 = n/2 rows (K = n/2, an exact lane
-    multiple for every n >= 256) and ``alt`` the broadcast row — a VPU
-    term XLA fuses into the dot epilogue.  DC-imag handling is unchanged
-    (ci row 0 is exactly zero).  Dispatch-gated by measurement
-    (tuning/scripts/ablate_stft_floor.py §25).
+    with cr'/ci' the first h-1 = n/2 rows (K = n/2) and ``alt`` the
+    broadcast row — an elementwise term XLA fuses into the dot epilogue.
+    DC-imag handling is unchanged (ci row 0 is exactly zero).  Gated by
+    tuning.irfft_direct_k128.
     """
     base = get_irfft_direct_plan(n, scale)
     h = base["h"]
@@ -491,20 +374,10 @@ def get_irfft_direct_k128_plan(n: int, scale: float | None = None) -> dict:
     }
 
 
-# Stage-A digit: n1 = 128 at every measured N (the full n1 x engine sweep is
-# scripts/ablate_large.py, archived in docs/ABLATION.md).  128 is the MXU
-# width — the column DFT becomes lane-perfect 128x128 matmuls — and keeps the
-# F1 table set at ~256 KiB of VMEM.  Measured on v5e: 2^17 21->9.4 us,
-# 2^20 117->97 us vs the round-1 n/16384 rule; larger digits (256/512) lose
-# at every size.  Only grows above 128 when needed to keep n2 <= FUSED_MAX.
-# The live value is the per-chip table's (tuning.py); this module-level
-# constant remains as the documented v5e measurement.
-STAGE_A_N1 = 128
 
 def describe_plan(n: int, batch: int = 1, real_input: bool = True) -> dict:
     """Explain how a (batch, n) transform will dispatch — introspection for
-    users and debugging, mirroring the measured selection in
-    ``kernels/large.py`` (docs/ABLATION.md).
+    users and debugging, mirroring the selection in ``kernels/large.py``.
 
     Pure arithmetic — no tables are generated or cached (a staged plan's
     table set can run to hundreds of MB at MAX_N).
@@ -554,7 +427,7 @@ def describe_plan(n: int, batch: int = 1, real_input: bool = True) -> dict:
     n2 = n // n1
     out.update(
         path="staged",
-        engine="pallas stage-A + folded-einsum stage-B",
+        engine="einsum stage-A + folded-einsum stage-B",
         split=(n1, n2),
         layout="half-spectrum" if half and stage_b_plannable(n2) else "folded",
         stage_b_split=(n2 // 128, 128) if stage_b_plannable(n2) else None,
@@ -565,36 +438,20 @@ def describe_plan(n: int, batch: int = 1, real_input: bool = True) -> dict:
 def stage_b_plannable(n2: int) -> bool:
     """True when stage B runs as the einsum four-step with the digit reversal
     folded into the final dot's output permutation
-    (kernels/fused_jnp.py:stage_b_jnp) — needs the full-lane m2 = 128 row
+    (kernels/fused_jnp.py:stage_b_jnp) — needs the m2 = 128 row
     split.  Every production staged plan (n2 >= 1024) qualifies; the guard
     exists for forced-small test configs, which fall back to the recursive
     stage B + XLA transpose."""
     return n2 % 128 == 0 and n2 >= 256
 
-def stage_a_col_tile(n1: int, n2: int) -> int:
-    """Lane width of one stage-A program's column block.
+def stage_a_col_tile(n2: int) -> int:
+    """Column tile of the factored stage-A twiddle (``get_stage_a_plan``).
 
-    At n1 = 512 the F1 table set alone is ~4 MiB of VMEM, so the data blocks
-    shrink to stay inside the ~16 MiB scoped limit.  The tile is clamped to
-    n2 so the grid can never be empty (production plans always have
-    n2 >= 1024, but forced small configs must not silently return garbage).
+    The twiddle is stored as an outer (n1, n2/ct) and an inner (n1, ct)
+    factor; ``ct`` is also the granularity at which the staged real-output
+    inverse skips mirror columns.  Clamped to n2 for forced-small configs.
     """
-    return min(256 if n1 >= 512 else 512, n2)
-
-
-def stage_a_ct_full_range(n: int) -> int:
-    """Column tile for FULL-range stage-A consumers (forward fft and the
-    staged complex inverse): wider tiles once n2 is large — measured +3-4%
-    at 2^20/2^22 (docs/ABLATION.md §26, tuning.stage_a_wide_ct) — while
-    half-range consumers (the staged real-output inverse) keep
-    :func:`stage_a_col_tile`, whose finer granularity skips more mirror
-    column tiles."""
-    n1 = _stage_a_n1(n)
-    n2 = n // n1
-    t = get_tuning()
-    if n1 < 512 and n2 >= t.stage_a_wide_ct_n2_min:
-        return min(t.stage_a_wide_ct, n2)
-    return stage_a_col_tile(n1, n2)
+    return min(512, n2)
 
 
 def _stage_a_n1(n: int) -> int:
@@ -610,12 +467,12 @@ def get_stage_a_plan(n: int, sign: int, ct: int | None = None) -> dict[str, Any]
     """Tables for the staged large-N path (see kernels/large.py).
 
     ``f1``: the n1 x n1 column-DFT matrix (+ Karatsuba sum/diff variants);
-    the stage-A twiddle W_n^(k1 * col) is stored FACTORED over the kernel's
-    column tile ct: ``two`` (n1, n2/ct) with two[k1, j] = W_n^(k1*j*ct) and
-    ``twi`` (n1, ct) with twi[k1, cc] = W_n^(k1*cc) — the kernel
-    reconstructs each (n1, ct) block with one complex multiply, replacing
-    the materialized table's n-sized HBM read (8 MB at 2^20, 134 MB at
-    2^24) with a per-step (n1, 1) DMA.  Both factors are f64-generated
+    the stage-A twiddle W_n^(k1 * col) is stored FACTORED over the column
+    tile ct: ``two`` (n1, n2/ct) with two[k1, j] = W_n^(k1*j*ct) and
+    ``twi`` (n1, ct) with twi[k1, cc] = W_n^(k1*cc) — stage A rebuilds the
+    full table with one complex multiply inside its twiddle fusion instead
+    of reading an n-sized table (8 MB at 2^20, 134 MB at 2^24).  Both
+    factors are f64-generated
     unit-modulus entries, so the reconstructed twiddle is within 2 ulp of
     the direct table.  ``stage_b`` carries the row-transform tables for the
     einsum stage B with the folded digit reversal (m1/m2 ext DFT matrices
@@ -629,7 +486,7 @@ def get_stage_a_plan(n: int, sign: int, ct: int | None = None) -> dict[str, Any]
     n2 = n // n1
     f1r, f1i, f1s, f1d = dft_matrix_ext(n1, sign)
     if ct is None:
-        ct = stage_a_col_tile(n1, n2)
+        ct = stage_a_col_tile(n2)
     elif not 1 <= ct <= n2 or n2 % ct:
         raise ValueError(f"ct={ct} must divide n2={n2}")
     # outer[k1, j] = W_n^(k1 * j * ct) = W_(n/ct)^(k1 * j): exact integer
@@ -646,8 +503,8 @@ def get_stage_a_plan(n: int, sign: int, ct: int | None = None) -> dict[str, Any]
         "stage_b": None,
     }
     if stage_b_plannable(n2):
-        # m2 = 128: the row four-step's dominant second matmul contracts a
-        # full 128-lane tile (measured fastest at every staged size).
+        # m2 = 128: the row four-step's dominant second matmul contracts
+        # 128 deep.
         m1, m2 = n2 // 128, 128
         g1r, g1i, g1s, g1d = dft_matrix_ext(m1, sign)
         g2r, g2i, g2s, g2d = dft_matrix_ext(m2, sign)

@@ -1,28 +1,20 @@
-"""Per-chip dispatch constants (the measured tuning table).
+"""Per-device dispatch constants (the tuning table).
 
-Round 2 hard-coded every dispatch predicate — the wide-split and
-folded-layout rules, the stage-A digit, the overlap-add block size — as v5e
-measurements baked into code (``plan.py``, ``ops/filter.py``).  This module
-makes the hardware dependence explicit: one :class:`ChipTuning` entry per
-chip generation, keyed by ``utils.roofline.detect_chip()``, with a
-``calibrated`` flag that says whether the entry is a hardware measurement or
-a model-derived transfer.  ``scripts/calibrate_chip.py`` re-runs the
-ablation harnesses on new hardware and prints a fresh entry to paste here.
+Every dispatch predicate — the wide-split and folded-layout rules, the
+stage-A digit, the real-input gates, the overlap-add block size — reads its
+threshold from one :class:`ChipTuning` row, keyed by the device table in
+``utils/roofline.py`` (``device_key``).  A device without a row is an
+error, not a default.
 
 The reference's analog is its compile-time tuning constants
 (``WORKGROUP_SIZE``/``TILE_SIZE``/``TILE_BITS``, reference
-``src/lib.rs:100-111``) — fixed for one GPU class; here the table carries
-one row per TPU generation.
+``src/lib.rs:100-111``) — fixed for one GPU class.
 
-Why the v5p/v6e/v4 rows currently EQUAL the v5e row: every predicate in the
-table is driven by MXU/VPU *geometry* — the 128-lane register width, the
-128x128 systolic array, the ~16 MiB/core VMEM — which is identical across
-v4/v5e/v5p/v6e; what differs per chip is the HBM/FLOP ratio
-(``roofline.CHIPS``), which moves the compute-vs-bandwidth *crossover*
-sizes, not the lane-geometry optima.  The block-size rule is the one entry
-the model says could shift (faster HBM lowers the latency-bound region), so
-treat uncalibrated rows as provisional: run the calibration script on real
-hardware before trusting benchmarks there.
+``calibrated`` says whether the row's values were measured on that device.
+The ``h100`` row is not calibrated: its values were carried over from the
+accelerator the library was first tuned on and have not been measured on the
+H100 (ROADMAP queue 1.5 lists each field).  The ``cpu`` row mirrors ``h100``
+so that the CPU test mesh takes the GPU's dispatch decisions.
 """
 
 from __future__ import annotations
@@ -36,37 +28,29 @@ __all__ = ["ChipTuning", "TUNING", "get_tuning"]
 
 @dataclass(frozen=True)
 class ChipTuning:
-    """Measured dispatch constants for one chip generation.
+    """Dispatch constants for one device.
 
-    Every field cites the ablation that set it (docs/ABLATION.md):
       * ``wide_batch_min`` / ``wide_n_min`` / ``wide_n_max`` — the fused
-        four-step switches to the full-lane n2=128 split when
-        b >= wide_batch_min and wide_n_min <= n <= wide_n_max (§7 addendum).
+        four-step switches to the n2 = 128 split when b >= wide_batch_min
+        and wide_n_min <= n <= wide_n_max.
       * ``folded_n_max`` / ``folded_batch_min`` — the folded (zero-transpose)
-        layout wins when n <= folded_n_max or b >= folded_batch_min (§7).
-      * ``stage_a_n1`` — the staged large-N column digit (§3: 128 = MXU
-        width wins at every measured N on v5e).
-      * ``oa_block_min`` — smallest overlap-add block transform length
-        (§9: blocks below this are launch-latency-bound).
+        layout is used when n <= folded_n_max or b >= folded_batch_min.
+      * ``stage_a_n1`` — the staged large-N column digit.
+      * ``oa_block_min`` — smallest overlap-add block transform length.
       * ``rfft_pack_min`` — smallest n where a real-input forward transform
-        runs as one n/2 complex transform plus an O(n) recombination (§11:
-        wins wherever the transform is MXU-pass-bound; below this the
-        recombination's extra elementwise passes cost more than the halved
-        matmuls save).
+        runs as one n/2 complex transform plus an O(n) recombination.
       * ``half_spectrum_min`` — smallest n where a real-input transform
         computes only the k1 <= n1/2 half of the spectrum and mirrors the
-        rest via Hermitian symmetry (§13: halves the post-twiddle matmul
-        stage and the trailing transposes; wins 1.18-1.35x at every
-        measured (B, n) with n >= 2^15, ~breaks even at 2^14).
+        rest via Hermitian symmetry.
       * ``irfft_half_min`` — smallest n where a real-OUTPUT inverse folds
-        the conjugate half of the input spectrum before the matmuls (§14:
-        the dual of half_spectrum — half the stage-1 contraction, real-only
-        stage 2, natural output order).
+        the conjugate half of the input spectrum before the matmuls.
       * ``irfft_half_staged_min`` — smallest STAGED n where the real-output
-        inverse runs stage A on only the first n2/2 column tiles (the rest
-        are conjugate mirrors) + the per-row stage-B fold (§14 addendum:
-        1.11x at 2^18 up to 1.28x at 2^22; ~neutral at 2^17 where the
-        column-tile granularity leaves stage A whole).
+        inverse runs stage A on only the first half of the column tiles
+        (the rest are conjugate mirrors) + the per-row stage-B fold.
+      * ``axis0_h_min`` / ``axis0_h_max`` / ``axis0_w_min`` — the 2-D column
+        pass as axis-0 folded einsums (kernels/fused_jnp.py:transform_axis0).
+      * ``irfft_direct_k128`` — the direct real-output inverse splits its
+        h = n/2 + 1 contraction into K = n/2 dots + the rank-1 Nyquist term.
     """
 
     name: str
@@ -84,38 +68,13 @@ class ChipTuning:
     axis0_h_min: int
     axis0_h_max: int
     axis0_w_min: int
-    # Single-kernel whole-transform band (kernels/fused.py:whole_transform):
-    # the latency-bound small-N region where fusing the entire four-step
-    # into ONE pallas_call beats the ~11-fusion XLA schedule (the
-    # reference's single-dispatch thesis, src/butterfly.rs:84-147).
-    whole_n_min: int
-    whole_n_max: int
-    whole_batch_max: int
-    # Within the whole band, sizes <= this run the PACKED single-operand
-    # variant (one table DMA issue, 3-4 stacked dots); larger sizes keep
-    # the 7-operand form whose operand DMAs overlap its bigger dots
-    # (scripts/ablate_whole_packed.py, §24).
-    whole_packed_n_max: int
-    # Direct real-output inverse: split the h = n/2+1 contraction into
-    # exact K = n/2 dots + the rank-1 Nyquist broadcast (lane-exact; the
-    # h-deep form MXU-pads 129 -> 256).  Structurally needs n/2 % 128 == 0
-    # (n >= 256); measured 1.43x at (253, 256) on v5e (§25).
     irfft_direct_k128: bool
-    # FULL-range stage A (forward fft / complex ifft staged paths) takes
-    # wider column tiles once n2 is large: ct = stage_a_wide_ct when
-    # n2 >= stage_a_wide_ct_n2_min (fewer grid steps, same double-buffered
-    # DMA overlap; +3-4% at 2^20/2^22 — §26).  Half-range consumers (the
-    # staged real-output inverse, which skips mirror column tiles) keep
-    # the default ct: wider tiles coarsen the skip granularity and
-    # measure slower.
-    stage_a_wide_ct: int
-    stage_a_wide_ct_n2_min: int
-    calibrated: bool  # True = measured on this chip; False = transferred
+    calibrated: bool  # True = every value measured on this device
     note: str
 
 
-_V5E = ChipTuning(
-    name="v5e",
+_H100 = ChipTuning(
+    name="h100",
     wide_batch_min=16,
     wide_n_min=256,
     wide_n_max=16384,
@@ -123,109 +82,43 @@ _V5E = ChipTuning(
     folded_batch_min=2,
     stage_a_n1=128,
     oa_block_min=16384,
-    # Real-input packing measured SLOWER at every (B, n) on v5e — the
-    # permutation-matmul deinterleave + recombination overhead and the
-    # half-size plan's worse contraction classes eat the 2x FLOP cut
-    # (docs/ABLATION.md §11 addendum).  The path stays implemented and
-    # tested; the gate is effectively off.
+    # Closed: the real-input packing path stays implemented and tested.
     rfft_pack_min=1 << 62,
-    # Hermitian half-spectrum real-input path: measured v5e 2026-08
-    # (docs/ABLATION.md §13) — staged sizes win 1.18-1.31x, fused sizes win
-    # from 2^15 up (2^16: 1.11x B=1, 1.27x B=2, 1.35x B=16); 2^14 breaks
-    # even (0.97x), so the gate opens at 2^15.
     half_spectrum_min=1 << 15,
-    # Real-output inverse Hermitian fold: measured v5e 2026-08
-    # (docs/ABLATION.md §14) — 1.11-1.46x at every (B, n) with n >= 2^15
-    # (2^16: 1.28x B=1, 1.46x B=16); below that the full inverse's
-    # better-tiled batched contractions win (2^12 B=16: 0.62x), so the
-    # gate opens at 2^15, mirroring half_spectrum_min.
     irfft_half_min=1 << 15,
-    # Staged real-output inverse: half-column stage A + per-row stage-B
-    # fold, measured v5e 2026-08 (docs/ABLATION.md §14 addendum) — 1.11x
-    # at 2^18, 1.21x at 2^20 B=1, 1.28x at 2^22; 0.96-1.01x at 2^17
-    # (ceil((n2/2+1)/512) = all tiles there), so the gate opens at 2^18.
     irfft_half_staged_min=1 << 18,
-    # 2-D column pass as axis-0 folded einsums: REJECTED on composed
-    # evidence (docs/ABLATION.md §19).  In ISOLATION the form wins
-    # 1.03-1.13x for tall panels (scripts/ablate_fft2_axis0.py) — but
-    # that isolation is a loop-carry layout artifact: XLA picks the
-    # einsum-friendly layout for the chained harness's carry, hiding the
-    # relayout the real pipeline pays.  COMPOSED through fft2_device the
-    # form loses 0.57-0.87x at every cell except a 1.01-1.03x tie at
-    # w = 512, so the gate is off; the engine stays implemented and
-    # tested (kernels/fused_jnp.py:transform_axis0) for layout-different
-    # future chips/toolchains.
+    # Closed: transform_axis0 stays implemented and tested.
     axis0_h_min=1 << 62,
     axis0_h_max=1 << 62,
     axis0_w_min=512,
-    # Whole-transform single-kernel band: measured v5e 2026-08-20
-    # (scripts/ablate_whole_kernel.py, docs/ABLATION.md §23).  Wins ONLY at
-    # B=1 — 1.06-1.12x at 1024, 1.47x at 2048, 1.39-1.42x at 4096,
-    # 1.01-1.17x at 8192, 1.09-1.10x at 16384 (real and complex) — because
-    # the single serial kernel trades all of XLA's inter-fusion overlap for
-    # one launch, which only pays where launch latency dominates.  At B>=2
-    # the shipped schedule overlaps grid rows and wins 0.17-0.85x; at
-    # n>=32768 the serial in-VMEM dataflow loses its MXU efficiency
-    # (0.47-0.75x).  Gate: B=1, 1024 <= n <= 16384.
-    whole_n_min=1 << 10,
-    whole_n_max=1 << 14,
-    whole_batch_max=1,
-    # Packed sub-gate: W2 wins 1.16-1.22x over W1 at n=1024 only (the
-    # operand probe's ~0.45+0.10/operand us DMA-issue serialization is
-    # the whole story there); at n >= 2048 W1's operand DMAs overlap its
-    # larger dots and the packed form's extra schoolbook flops tie or
-    # lose 0.94-1.00x (§24).
-    whole_packed_n_max=1 << 10,
-    # K=128 + Nyquist-broadcast direct irfft: 1.98 vs 2.83 us at
-    # (B, n) = (253, 256) — the istft hot shape (§25).
     irfft_direct_k128=True,
-    # L4 ct sweep (scripts/ablate_2e20_levers.py, §26): fft 2^20
-    # 54.20 -> 51.98 us and 2^22 267.96 -> 260.25 us at ct=2048; ties at
-    # 2^17/2^18 (n2 <= 2048), where 512 stays; irfft (half-range) best at
-    # 512 everywhere (ct=2048 computes 75% of the mirror columns instead
-    # of 56% at 2^20).
-    stage_a_wide_ct=2048,
-    stage_a_wide_ct_n2_min=8192,
-    calibrated=True,
-    note="measured on v5e 2026-08 (docs/ABLATION.md §3, §7, §9, §10, §11, §19, §23)",
+    calibrated=False,
+    note=(
+        "values carried over from an earlier accelerator, not measured on "
+        "the H100; ROADMAP queue 1.5 lists each field"
+    ),
 )
 
 TUNING = {
-    "v5e": _V5E,
-    # Geometry-identical transfers (same 128-lane VPU / 128x128 MXU /
-    # ~16 MiB VMEM); re-run scripts/calibrate_chip.py on hardware to promote
-    # calibrated=True.  The faster HBM on v5p/v6e can only LOWER the
-    # latency-bound oa_block_min / wide-split crossovers, so these values
-    # are conservative there.
-    "v5p": replace(_V5E, name="v5p", calibrated=False,
-                   note="transferred from v5e (same MXU/VPU geometry); uncalibrated"),
-    "v6e": replace(_V5E, name="v6e", calibrated=False,
-                   note="transferred from v5e (same MXU/VPU geometry); uncalibrated"),
-    "v4": replace(_V5E, name="v4", calibrated=False,
-                  note="transferred from v5e (same MXU/VPU geometry); uncalibrated"),
-    # The CPU test mesh mirrors the v5e entry so CPU tests exercise the
-    # same dispatch decisions the TPU takes.
-    "cpu-approx": replace(_V5E, name="cpu-approx", calibrated=False,
-                          note="CPU test mesh: mirrors v5e so tests cover the TPU dispatch"),
+    "h100": _H100,
+    # The CPU test mesh mirrors the h100 row so CPU tests exercise the
+    # dispatch decisions the GPU takes.
+    "cpu": replace(_H100, name="cpu", note="CPU test mesh: mirrors the h100 row"),
 }
 
 
 @functools.lru_cache(maxsize=1)
 def _detected_tuning() -> ChipTuning:
-    from .utils.roofline import detect_chip
+    from .utils.roofline import device_key
 
-    try:
-        name = detect_chip().name
-    except Exception:  # jax not initialized / no devices: geometry defaults
-        name = "cpu-approx"
-    return TUNING.get(name, TUNING["cpu-approx"])
+    return TUNING[device_key()]
 
 
 def get_tuning() -> ChipTuning:
-    """The tuning entry for the detected chip (env-overridable).
+    """The tuning row for the detected device (env-overridable).
 
-    ``GPU_FFT_TPU_CHIP`` forces a row (useful for cross-chip what-if runs
-    and for tests asserting the table is consulted).
+    ``GPU_FFT_TPU_CHIP`` forces a row (useful for what-if runs and for
+    tests asserting the table is consulted).
     """
     forced = os.environ.get("GPU_FFT_TPU_CHIP")
     if forced:

@@ -2,8 +2,8 @@
 
 The reference's serving story is per-variant shader compilation at process
 startup (reference ``README.md:87-89`` documents ~50 ms first-run compiles
-per kernel variant; ``warmup()`` is this library's direct analog).  The
-TPU-native equivalent goes further: ``jax.export`` traces and lowers a
+per kernel variant; ``warmup()`` is this library's direct analog).  This
+library goes further: ``jax.export`` traces and lowers a
 transform ONCE, serializes the StableHLO artifact to bytes, and a serving
 process deserializes and runs it with ZERO retracing — Python-side plan
 selection, table generation, and jit tracing all happen at build time, so
@@ -16,7 +16,7 @@ reference's per-variant shaders: the measured dispatch predicates
 (plan.py, tuning.py) branch on concrete shapes at trace time, which is
 exactly what makes the compiled program fast — a shape-generic artifact
 would have to forgo the measured plan selection.  Pass several entries in
-``platforms`` (e.g. ``("tpu", "cpu")``) to build one artifact that runs on
+``platforms`` (e.g. ``("cuda", "cpu")``) to build one artifact that runs on
 any of them.
 
 CLI: ``python -m gpu_fft_tpu export --kind fft --batch 16 --n 65536 -o fft.bin``
@@ -75,7 +75,7 @@ def export_transform(kind: str, batch: int, n: int, platforms=None):
     ``jax.export.Exported``.
 
     ``platforms``: None (the current default backend) or a tuple of
-    lowering platforms (``("tpu",)``, ``("tpu", "cpu")``, ...) for
+    lowering platforms (``("cuda",)``, ``("cuda", "cpu")``, ...) for
     artifacts built on one machine and served on another.
     """
     import jax

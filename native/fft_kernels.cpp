@@ -1,6 +1,6 @@
-// tpufft — native CPU FFT behind a C ABI.
+// fftnative — native CPU FFT behind a C ABI.
 //
-// The TPU-native analog of the reference's MLX FFI shim (reference
+// The analog of the reference's MLX FFI shim (reference
 // ffi/mlx_fft.c): a native-code transform reached through a plain C boundary
 // with split-complex f32 buffers on both sides and integer error codes
 // (mirroring mlx_fft.c's -1/-2/-3 contract).  Where the reference shim
@@ -10,8 +10,8 @@
 // native backend doubles as an independent numerical oracle for the parity
 // suite.
 //
-// Build: make -C native          (produces libtpufft.so)
-// ABI:   tpufft_transform(re_in, im_in, re_out, im_out, batch, n, sign)
+// Build: make -C native          (produces libfftnative.so)
+// ABI:   fftnative_transform(re_in, im_in, re_out, im_out, batch, n, sign)
 //        sign = -1 forward, +1 inverse (unnormalized; caller scales by 1/n,
 //        matching the library convention and reference src/ifft.rs:140-146).
 
@@ -79,7 +79,7 @@ extern "C" {
 // Returns 0 on success; -1: null pointer; -2: n not a power of two;
 // -3: sign not in {-1, +1}
 // (error-code contract mirroring reference ffi/mlx_fft.c:17,48,62).
-int tpufft_transform(const float* re_in, const float* im_in, float* re_out,
+int fftnative_transform(const float* re_in, const float* im_in, float* re_out,
                      float* im_out, std::size_t batch, std::size_t n,
                      int sign) {
   if (!re_in || !im_in || !re_out || !im_out) return -1;
@@ -103,6 +103,6 @@ int tpufft_transform(const float* re_in, const float* im_in, float* re_out,
 }
 
 // Library version tag, for ctypes sanity checks.
-int tpufft_abi_version() { return 1; }
+int fftnative_abi_version() { return 1; }
 
 }  // extern "C"

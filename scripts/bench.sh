@@ -1,7 +1,8 @@
 #!/usr/bin/env bash
-# Run the full benchmark sweep and regenerate the report.
-# The analog of the reference's scripts/bench.sh: run -> tee raw output ->
-# generate report -> archive timestamped copy.
+# Run the full benchmark sweep and keep its raw output.
+# The analog of the reference's scripts/bench.sh: run -> tee raw output.
+# Each step runs in its own process, one after another, so only one process
+# holds the device at a time.
 #
 # Usage: scripts/bench.sh [--quick]
 set -euo pipefail
@@ -9,8 +10,4 @@ cd "$(dirname "$0")/.."
 
 mkdir -p bench-results
 python scripts/bench_sweep.py "$@" | tee bench-results/last_run.log
-# Distributed validation section (8-device virtual CPU mesh) — best-effort.
-XLA_FLAGS="${XLA_FLAGS:-} --xla_force_host_platform_device_count=8" \
-  python scripts/bench_distributed.py || echo "(distributed section skipped)"
-python scripts/export_report.py --readme
-echo "report: bench-results/latest.md (+ README.md headline tables)"
+echo "raw results: bench-results/raw_*.json"

@@ -3,13 +3,12 @@
 The transforms are linear maps, so two exact oracles exist with no
 numerics beyond the transform's own: Parseval's theorem gives the
 closed-form gradient of the spectrum power (d/dx sum|X|^2 = 2*n*x), and
-the dot test <L v, w> == <v, L^T w> checks the vjp against the jvp.  The
-Pallas stage-A kernel has no transpose rule of its own; transform_any's
-staged path routes both AD modes through the measured dispatch itself
-(linear_call + the DFT's F^T = F symmetry: transpose = conj . T . conj),
-while inverse_real's fold paths use the custom-jvp seam
-(kernels/large.py:_stage_a_core) with jnp-engine tangents — so both
-modes must work at FUSED and STAGED sizes on every entry point.
+the dot test <L v, w> == <v, L^T w> checks the vjp against the jvp.
+transform_any's staged path routes both AD modes through the forward
+dispatch itself (linear_call + the DFT's F^T = F symmetry: transpose =
+conj . T . conj), while inverse_real's fold paths are plain jnp that XLA
+differentiates — so both modes must work at FUSED and STAGED sizes on
+every entry point.
 """
 
 import jax
@@ -20,7 +19,7 @@ import pytest
 import gpu_fft_tpu as gf
 from gpu_fft_tpu.kernels.large import inverse_real, transform_any
 
-SIZES = [512, 4096, 1 << 17]  # direct, fused four-step, staged (Pallas stage A)
+SIZES = [512, 4096, 1 << 17]  # direct, fused four-step, staged
 
 
 def _power(v):

@@ -1,4 +1,4 @@
-"""Cross-round regression gate (bench.py:regression_report, verdict item 3)."""
+"""Regression gate between two bench runs (bench.py:regression_report)."""
 
 import importlib.util
 import json
@@ -6,6 +6,7 @@ import pathlib
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+DEVICE = {"platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}
 
 
 def _load_bench():
@@ -18,7 +19,7 @@ def _load_bench():
 def test_regression_report_flags_beyond_iqr(tmp_path):
     bench = _load_bench()
     prev = {
-        "device": "TPU v5 lite0",
+        "device": DEVICE,
         "headline": {"value": 10000.0},
         "configs": {
             "fft_n65536": {"per_call_s": 6.6e-6, "iqr_s": 0.1e-6},
@@ -29,6 +30,7 @@ def test_regression_report_flags_beyond_iqr(tmp_path):
     p = tmp_path / "prev.json"
     p.write_text(json.dumps(prev))
     details = {
+        "device": DEVICE,
         "configs": {
             # 20% slower, far beyond both IQRs and the 3% floor -> regressed
             "fft_n65536": {"per_call_s": 7.9e-6, "iqr_s": 0.1e-6, "melem_per_s": 8295.0},
@@ -54,9 +56,21 @@ def test_regression_report_missing_baseline(tmp_path):
 
 def test_regression_report_wide_iqr_suppresses_noise(tmp_path):
     bench = _load_bench()
-    prev = {"configs": {"cfg": {"per_call_s": 10e-6, "iqr_s": 2e-6}}}
+    prev = {"device": DEVICE, "configs": {"cfg": {"per_call_s": 10e-6, "iqr_s": 2e-6}}}
     p = tmp_path / "prev.json"
     p.write_text(json.dumps(prev))
-    details = {"configs": {"cfg": {"per_call_s": 11e-6, "iqr_s": 2e-6}}}
+    details = {"device": DEVICE, "configs": {"cfg": {"per_call_s": 11e-6, "iqr_s": 2e-6}}}
     rep = bench.regression_report(details, path=str(p))
     assert not rep["per_config"]["cfg"]["regressed"]  # within the IQR band
+
+
+def test_regression_report_skips_other_device(tmp_path):
+    # A baseline recorded on another device is never compared.
+    bench = _load_bench()
+    other = dict(DEVICE, kind="NVIDIA A100-SXM4-80GB")
+    prev = {"device": other, "configs": {"cfg": {"per_call_s": 1e-6, "iqr_s": 0.0}}}
+    p = tmp_path / "prev.json"
+    p.write_text(json.dumps(prev))
+    details = {"device": DEVICE, "configs": {"cfg": {"per_call_s": 9e-6, "iqr_s": 0.0}}}
+    rep = bench.regression_report(details, path=str(p))
+    assert "per_config" not in rep and "not compared" in rep["note"]

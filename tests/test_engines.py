@@ -1,37 +1,44 @@
-"""Kernel/graph cross-validation for the surviving hand-written kernels.
+"""Cross-validation of the staged-path stages against independent oracles.
 
-Round 2 replaced the global ENGINE flag with per-size selection measured on
-hardware (docs/ABLATION.md): fused sizes run the XLA-scheduled jnp graph,
-the staged large-N path runs the Pallas stage-A kernel and (when fusable)
-the Pallas stage-B+digit-reversal kernel.  These tests pin each surviving
-kernel to its independent jnp/numpy oracle so the dispatch composition can
-never silently drift.
+Every stage is plain jnp: stage A (column DFT + twiddle,
+kernels/fused_jnp.py:stage_a_jnp) and stage B (row transforms with the
+digit reversal folded into the last einsum).  These tests pin each stage
+to float64 numpy so the composition can never silently drift.
 """
 
 import numpy as np
 import pytest
 from conftest import assert_slice_approx
 
-from gpu_fft_tpu.kernels.fused import stage_a
 from gpu_fft_tpu.kernels.fused_jnp import stage_a_jnp, stage_b_jnp
 from gpu_fft_tpu.kernels.large import transform_any
-from gpu_fft_tpu.plan import get_stage_a_plan, stage_a_col_tile
+from gpu_fft_tpu.plan import get_stage_a_plan
 
 
-@pytest.mark.parametrize("n", [1 << 17, 1 << 18])
-def test_stage_a_kernel_matches_jnp_form(rng, n):
+@pytest.mark.parametrize("cols", [None, 1024])
+@pytest.mark.parametrize("rows", [None, 65])
+def test_stage_a_matches_float64(rng, rows, cols):
+    # Stage A with the row/column limits the staged real paths use
+    # (kernels/large.py:_stage_a) against the explicit column DFT and
+    # twiddle in float64.
     import jax.numpy as jnp
 
+    from gpu_fft_tpu.kernels.large import _stage_a
+
+    n = 1 << 17
     plan = get_stage_a_plan(n, -1)
     n1, n2 = plan["n1"], plan["n2"]
-    xr = jnp.asarray(rng.uniform(-1.0, 1.0, (2, n1, n2)).astype(np.float32))
-    xi = jnp.asarray(rng.uniform(-1.0, 1.0, (2, n1, n2)).astype(np.float32))
-    for inp_i in (None, xi):
-        kr, ki = stage_a(xr, inp_i, n1, n2, plan, stage_a_col_tile(n1, n2))
-        jr, ji = stage_a_jnp(xr, inp_i, plan)
-        label = "real" if inp_i is None else "complex"
-        assert_slice_approx(np.asarray(kr), np.asarray(jr), eps=1e-3, label=f"stage_a {label} re")
-        assert_slice_approx(np.asarray(ki), np.asarray(ji), eps=1e-3, label=f"stage_a {label} im")
+    xr = rng.uniform(-1.0, 1.0, (2, n1, n2)).astype(np.float32)
+    xi = rng.uniform(-1.0, 1.0, (2, n1, n2)).astype(np.float32)
+    yr, yi = _stage_a(jnp.asarray(xr), jnp.asarray(xi), plan, rows=rows, cols=cols)
+    f1 = np.exp(-2j * np.pi * np.outer(np.arange(n1), np.arange(n1)) / n1)
+    tw = np.exp(-2j * np.pi * np.outer(np.arange(n1), np.arange(n2)) / n)
+    ref = np.einsum("ka,bac->bkc", f1, xr + 1j * xi.astype(np.float64)) * tw[None]
+    ref = ref[:, : rows or n1, : cols or n2]
+    assert yr.shape == ref.shape
+    scale = np.abs(ref).max()
+    assert np.abs(np.asarray(yr) - ref.real).max() / scale < 5 * np.log2(n) * 2**-23
+    assert np.abs(np.asarray(yi) - ref.imag).max() / scale < 5 * np.log2(n) * 2**-23
 
 
 def test_stage_b_jnp_matches_rows_plus_transpose(rng):
@@ -56,7 +63,7 @@ def test_stage_b_jnp_matches_rows_plus_transpose(rng):
 
 @pytest.mark.parametrize("n", [1 << 17, 1 << 19])
 def test_staged_path_vs_oracle(rng, n):
-    # Full staged dispatch (Pallas stage A + folded-einsum stage B) against
+    # Full staged dispatch (einsum stage A + folded-einsum stage B) against
     # numpy, forward and inverse.
     import jax.numpy as jnp
 

@@ -106,7 +106,7 @@ def test_mixed_split_selection():
 @pytest.mark.parametrize("n", [6, 360, 1000, 44100, 48000])
 def test_mixed_fft_matches_numpy(rng, n):
     """The mixed four-step is exact at audio-style lengths (real, complex,
-    batch), measured 2.2-4.9x over Bluestein on v5e (docs/ABLATION.md §17)."""
+    batch)."""
     from gpu_fft_tpu.ops.exact import mixed_split
 
     assert mixed_split(n) is not None  # pin: these must ride the mixed path

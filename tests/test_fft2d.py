@@ -352,8 +352,8 @@ def test_prev_fast_len():
 class TestAxis0ColumnPass:
     """The axis-0 folded-einsum column engine (kernels/fused_jnp.py).
 
-    The dispatch gate is OFF on current chips (composed-measurement
-    rejection, docs/ABLATION.md §19) — these tests pin (a) that default,
+    The dispatch gate is closed in every tuning row — these tests pin (a)
+    that default,
     (b) the engine's correctness for a future re-opening, and (c) the
     fft2/rfft2/irfft2 dispatch branches under a forced gate.
     """

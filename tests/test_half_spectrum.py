@@ -1,4 +1,4 @@
-"""Hermitian half-spectrum real-input path (docs/ABLATION.md §13).
+"""Hermitian half-spectrum real-input path (tuning.half_spectrum_min).
 
 Real input makes the spectrum Hermitian (X[n-k] = conj(X[k]), either sign),
 so the dispatch computes only the k1 <= n1/2 half after the twiddle and
@@ -109,9 +109,9 @@ def test_gate_off_routes_full_spectrum(monkeypatch):
     x = rng.standard_normal((1, n)).astype(np.float32)
     on_r, on_i = transform_any(jnp.asarray(x), None, n, -1)
 
-    mod = replace(tuning.TUNING["v5e"], name="test", half_spectrum_min=1 << 62)
-    monkeypatch.setitem(tuning.TUNING, "v4", mod)
-    monkeypatch.setenv("GPU_FFT_TPU_CHIP", "v4")
+    mod = replace(tuning.TUNING["h100"], name="test", half_spectrum_min=1 << 62)
+    monkeypatch.setitem(tuning.TUNING, "test", mod)
+    monkeypatch.setenv("GPU_FFT_TPU_CHIP", "test")
     assert not half_spectrum_applies(n)
     off_r, off_i = transform_any(jnp.asarray(x), None, n, -1)
     np.testing.assert_allclose(np.asarray(on_r), np.asarray(off_r), atol=2e-3)

@@ -2,8 +2,8 @@
 
 The dual of the forward half-spectrum path: real-output inverses fold the
 conjugate half of the input spectrum before the matmuls for
-n >= tuning.irfft_half_min (measured v5e gate 2^15, docs/ABLATION.md §14).
-The CPU test mesh mirrors the v5e tuning row, so both sides of the gate are
+n >= tuning.irfft_half_min (2^15 in the h100 row).
+The CPU test mesh mirrors the h100 tuning row, so both sides of the gate are
 exercised here: n = 2^14 takes the full complex inverse, n >= 2^15 the fold.
 """
 
@@ -113,7 +113,7 @@ def test_irfft_device_roundtrip_past_gate(n):
 @pytest.mark.parametrize("b", [1, 5])
 def test_direct_half_matches_numpy(n, b):
     """inverse_real_half at direct sizes: two real dots, contraction h,
-    no mirror (plan.get_irfft_direct_plan; measured 1.4-2.75x on v5e)."""
+    no mirror (plan.get_irfft_direct_plan)."""
     from gpu_fft_tpu.kernels.large import inverse_real_half
 
     rng = np.random.default_rng(n + b)
@@ -185,11 +185,9 @@ def test_direct_half_grad_flows():
 
 class TestOneSidedDirectGridEngine:
     """fused_irfft_half_jnp: the fold grid assembled STRAIGHT from the
-    one-sided bins.  Measured and REJECTED as the fused-size dispatch
-    (its odd-width minor-axis concats cost more than the full mirror's
-    aligned flat concats — docs/ABLATION.md §22), but the engine stays
-    correct and oracle-pinned for layout-different chips/toolchains,
-    the same disposition as the fft2 axis-0 pass (§19)."""
+    one-sided bins.  No dispatch routes to it (the full mirror is the
+    fused-size dispatch), but the engine stays correct and oracle-pinned,
+    the same disposition as the fft2 axis-0 pass."""
 
     @pytest.mark.parametrize("n", [1 << 15, 1 << 16])
     @pytest.mark.parametrize("b", [1, 3])
@@ -227,8 +225,8 @@ class TestOneSidedDirectGridEngine:
 
 
 class TestDirectK128Variant:
-    """Lane-exact direct half inverse (round 5, docs/ABLATION.md §25):
-    K = n/2 dots + Nyquist broadcast instead of the MXU-padded h-deep
+    """Power-of-two-deep direct half inverse (tuning.irfft_direct_k128):
+    K = n/2 dots + Nyquist broadcast instead of the h = n/2 + 1 deep
     contraction."""
 
     @pytest.mark.parametrize("n", [256, 512])
@@ -276,7 +274,7 @@ class TestDirectK128Variant:
 
 
 class TestRfftDirectPacked:
-    """One-dot packed direct real forward (round 5, docs/ABLATION.md §28):
+    """One-dot packed direct real forward (no dispatch gate routes to it):
     [C | S-interior] in one (n, n) table; PSD reduces the packed product
     without an unpack pass."""
 

@@ -3,7 +3,7 @@
 The reference selects kernel paths by N (inner-only <=1024, trailing radix-2
 at 2048, pure radix-4 at 4096 — ``tests/fft.rs:112-118``).  The analog here:
 direct (N <= 512), fused four-step (<= 65536, folded or transpose layout by
-batch), staged large-N above (Pallas stage A + folded-einsum stage B at
+batch), staged large-N above (einsum stage A + folded-einsum stage B at
 every production size; the recursive stage-B fallback exists only for
 forced non-plannable n2 and is covered separately).  Each boundary gets
 oracle coverage on both sides.
@@ -89,7 +89,7 @@ def test_inverse_boundaries(rng):
         assert np.abs(out[:n] - ref.real).max() < 1e-4, f"ifft n={n}"
 
 
-# ── Real-input packed forward path (round 3, docs/ABLATION.md §11) ───────────
+# ── Real-input packed forward path (tuning.rfft_pack_min) ───────────────────
 
 
 @pytest.mark.parametrize("n", [256, 4096, 65536, 1 << 17])

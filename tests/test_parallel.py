@@ -1,7 +1,7 @@
 """Sharded/multi-chip paths on the 8-device virtual CPU mesh.
 
 The reference has nothing distributed to mirror (SURVEY §2.4); these tests
-validate the TPU scale-out extensions against the single-chip oracle.
+validate the scale-out extensions against the single-chip oracle.
 """
 
 import numpy as np

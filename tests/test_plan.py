@@ -70,8 +70,8 @@ def test_plan_cached():
 
 
 def test_stage_a_plan_digits():
-    # n1 = 128 (the MXU width, measured winner — docs/ABLATION.md) at every
-    # staged size until n2 would exceed FUSED_MAX.
+    # n1 = 128 (tuning.stage_a_n1) at every staged size until n2 would
+    # exceed FUSED_MAX.
     for n, want_n1 in ((1 << 17, 128), (1 << 20, 128), (1 << 23, 128), (1 << 24, 256)):
         p = get_stage_a_plan(n, -1)
         assert p["n1"] == want_n1, n
@@ -148,11 +148,11 @@ def test_describe_plan_dispatch_map():
         describe_plan(100)
 
 
-# ── Per-chip tuning table (round-2 verdict item 5) ───────────────────────────
+# ── Per-device tuning table ──────────────────────────────────────────────────
 
 
 def test_tuning_table_is_consulted(monkeypatch):
-    # The dispatch predicates must read the per-chip table, not baked-in
+    # The dispatch predicates must read the per-device table, not baked-in
     # constants: overriding the selected row changes every decision.
     from dataclasses import replace
 
@@ -165,7 +165,7 @@ def test_tuning_table_is_consulted(monkeypatch):
         wide_split_applies,
     )
 
-    base = tuning.TUNING["v5e"]
+    base = tuning.TUNING["h100"]
     assert wide_split_applies(64, 4096) and not wide_split_applies(4, 4096)
     assert use_folded_layout(1, 4096) and not use_folded_layout(1, 65536)
     assert _stage_a_n1(1 << 20) == 128
@@ -183,8 +183,8 @@ def test_tuning_table_is_consulted(monkeypatch):
         calibrated=False,
         note="test row",
     )
-    monkeypatch.setitem(tuning.TUNING, "v6e", mod)
-    monkeypatch.setenv("GPU_FFT_TPU_CHIP", "v6e")
+    monkeypatch.setitem(tuning.TUNING, "test", mod)
+    monkeypatch.setenv("GPU_FFT_TPU_CHIP", "test")
     assert wide_split_applies(4, 4096)  # batch_min now 2
     assert use_folded_layout(1, 65536)  # folded_n_max now 65536
     assert _stage_a_n1(1 << 20) == 256
@@ -198,7 +198,11 @@ def test_tuning_every_chip_has_a_row():
 
     for name in CHIPS:
         assert name in TUNING, f"no tuning row for chip {name}"
-    assert TUNING["v5e"].calibrated  # the measured row
+    # No row was measured on its device yet; the CPU mesh mirrors the GPU.
+    assert not TUNING["h100"].calibrated
+    from dataclasses import replace
+
+    assert replace(TUNING["cpu"], name="h100", note=TUNING["h100"].note) == TUNING["h100"]
 
 
 def test_tuning_unknown_chip_env_rejected(monkeypatch):
@@ -206,6 +210,24 @@ def test_tuning_unknown_chip_env_rejected(monkeypatch):
 
     from gpu_fft_tpu.tuning import get_tuning
 
-    monkeypatch.setenv("GPU_FFT_TPU_CHIP", "v99x")
+    monkeypatch.setenv("GPU_FFT_TPU_CHIP", "a100")
     with _pytest.raises(ValueError):
         get_tuning()
+
+
+def test_detected_tuning_raises_on_unknown_device(monkeypatch):
+    # No silent default: a device without a table row is an error.
+    from gpu_fft_tpu import tuning
+    from gpu_fft_tpu.utils import roofline
+
+    def unknown():
+        raise ValueError("no device-table row for platform='gpu' device_kind='X'")
+
+    monkeypatch.delenv("GPU_FFT_TPU_CHIP", raising=False)
+    monkeypatch.setattr(roofline, "device_key", unknown)
+    tuning._detected_tuning.cache_clear()
+    try:
+        with pytest.raises(ValueError, match="no device-table row"):
+            tuning.get_tuning()
+    finally:
+        tuning._detected_tuning.cache_clear()

@@ -2,12 +2,10 @@
 
 On the CPU mesh the jax Precision flags are no-ops (f32 is computed
 exactly), so CPU runs only verify the plumbing and that every mode stays
-correct; the accuracy BANDS (full ~2e-7, high ~2e-5, fast ~4e-3 measured on
-v5e) are asserted only when the suite runs on real TPU
-(GPU_FFT_TPU_TEST_PLATFORM=<tpu platform>).
+correct; how the modes trade accuracy on the card is asserted by the
+``gpu``-marked test below (bands measured on an H100, PERF.md).
 """
 
-import jax
 import numpy as np
 import pytest
 
@@ -35,44 +33,21 @@ def test_modes_stay_within_band(mode, band, monkeypatch, rng):
     assert _rel_err(mode, monkeypatch, rng) < band
 
 
-def test_full_meets_gate_and_bands_order(monkeypatch, rng):
+def test_full_meets_gate(monkeypatch, rng):
+    assert _rel_err("full", monkeypatch, rng) < 1e-6  # every platform
+
+
+@pytest.mark.gpu
+def test_modes_trade_accuracy_on_card(gpu, monkeypatch, rng):
+    # On the GPU, HIGHEST is fp32 while HIGH and DEFAULT run the matmuls in
+    # TF32 (~5e-4 relative error measured on an H100, PERF.md): the two
+    # reduced modes coincide in accuracy and both miss the gate.
     e_full = _rel_err("full", monkeypatch, rng)
-    assert e_full < 1e-6  # the gate-passing mode, every platform
-    if jax.default_backend() == "tpu":
-        # Only on real MXU hardware do the modes actually trade accuracy.
-        e_high = _rel_err("high", monkeypatch, rng)
-        e_fast = _rel_err("fast", monkeypatch, rng)
-        assert e_full < e_high < e_fast
-        assert 1e-6 < e_high < 2e-4
-        assert 1e-4 < e_fast < 2e-2
-
-
-def test_high_routes_staged_stage_a_through_jnp(monkeypatch, rng):
-    # Under "high" the staged path must NOT use the Pallas stage-A kernel
-    # (Mosaic would silently run 6-pass HIGHEST there, making the mode's
-    # meaning size-dependent — round-2 verdict item 8).  Verified by
-    # poisoning the kernel entry point: "high" must never reach it, "full"
-    # must.  Correctness of the jnp-routed staged transform is checked too.
-    import jax.numpy as jnp
-
-    from gpu_fft_tpu.kernels import large
-
-    n = 1 << 17
-    x = rng.uniform(-1.0, 1.0, (1, n)).astype(np.float32)
-
-    def poisoned(*a, **k):
-        raise AssertionError("pallas stage_a used under precision=high")
-
-    monkeypatch.setattr(config, "PRECISION", "high")
-    monkeypatch.setattr(large, "stage_a", poisoned)
-    yr, yi = large.transform_any(jnp.asarray(x), None, n, -1)
-    ref = np.fft.fft(x[0].astype(np.float64))
-    scale = float(np.abs(ref).max())
-    assert float(np.abs(np.asarray(yr[0]) - ref.real).max()) / scale < 2e-4
-
-    monkeypatch.setattr(config, "PRECISION", "full")
-    with pytest.raises(AssertionError, match="precision=high"):
-        large.transform_any(jnp.asarray(x), None, n, -1)
+    e_high = _rel_err("high", monkeypatch, rng)
+    e_fast = _rel_err("fast", monkeypatch, rng)
+    assert e_full < 1e-6
+    assert 1e-4 < e_high < 2e-3
+    assert 1e-4 < e_fast < 2e-3
 
 
 def test_invalid_mode_rejected(monkeypatch):

@@ -31,20 +31,17 @@ def test_transform_cost_direct_vs_fused():
     # Below the gate (and for complex input) the full-spectrum model holds.
     cfull = roofline.transform_cost(1, 65536, "ifft")
     assert cfull["stages"][1][0] == pytest.approx(3 * 2.0 * 65536 * n2)
-    # (1, 16384) rides the whole-transform single kernel (round 5,
-    # tuning.whole_*): same [n1, 128] stage classes, one in-kernel twiddle
-    # cmul (6 flops/elem) and no separate digit-reversal epilogue.
+    # (1, 16384): the XLA-scheduled fused model (both stages contract 128;
+    # complex twiddle + digit-reversal epilogue).
     c3 = roofline.transform_cost(1, 16384, "fft")
     assert [k for _, k in c3["stages"]] == [128, 128]
     assert c3["flops"] == pytest.approx(
-        2 * 2.0 * 16384 * 128 + 3 * 2.0 * 16384 * 128 + 6.0 * 16384
+        2 * 2.0 * 16384 * 128 + 3 * 2.0 * 16384 * 128 + (6.0 + 5.0) * 16384
     )
-    # Above the whole-kernel batch gate the XLA-scheduled fused model holds.
+    # Batch scales the same model linearly.
     c4 = roofline.transform_cost(2, 16384, "fft")
     assert [k for _, k in c4["stages"]] == [128, 128]
-    assert c4["flops"] == pytest.approx(
-        2 * (2 * 2.0 * 16384 * 128 + 3 * 2.0 * 16384 * 128 + (6.0 + 5.0) * 16384)
-    )
+    assert c4["flops"] == pytest.approx(2 * c3["flops"])
 
 
 def test_transform_cost_mirrors_packing_gate(monkeypatch):
@@ -61,13 +58,16 @@ def test_transform_cost_mirrors_packing_gate(monkeypatch):
     assert [k for _, k in c2["stages"]] == [h1, h2]
 
 
-def test_eff_passes_classes():
-    # Calibrated shape classes: K >= 128 near-nominal, small K penalized.
-    assert roofline.eff_passes("v5e", 128) == pytest.approx(5.3)
-    assert roofline.eff_passes("v5e", 64) == pytest.approx(14.6)
-    assert roofline.eff_passes("v5e", 200) == pytest.approx(5.0)  # nearest 256
-    # Unknown chips transfer the v5e table (same MXU geometry).
-    assert roofline.eff_passes("v5p", 128) == pytest.approx(5.3)
+def test_device_table_rows():
+    # H100 peaks from NVIDIA's data sheet (dense): fp32 67, TF32 495,
+    # bf16 989 TFLOP/s, 3.35 TB/s HBM, 50 MB L2 — with the source named.
+    h = roofline.CHIPS["h100"]
+    assert (h.fp32_tflops, h.tf32_tflops, h.bf16_tflops) == (67.0, 495.0, 989.0)
+    assert h.hbm_gbps == 3350.0 and h.l2_mb == 50.0
+    assert "data sheet" in h.source
+    # The cpu row is explicit (and says it is not a measurement).
+    assert "not a measurement" in roofline.CHIPS["cpu"].source
+    assert set(roofline.CHIPS) == {"h100", "cpu"}
 
 
 def test_large_n_recursion_counts_both_stages():
@@ -83,29 +83,77 @@ def test_roundtrip_cost_exceeds_forward():
 
 
 def test_roofline_row_fields_and_bounds():
-    row = roofline.roofline_row(1, 65536, "fft", measured_s=10e-6, chip=roofline.CHIPS["v5e"])
-    assert row["bound"] in ("hbm", "onchip", "mxu", "vpu")
-    assert 0 < row["pct_sol"] <= 100.0 or row["pct_sol"] > 0  # finite, positive
+    h100 = roofline.CHIPS["h100"]
+    row = roofline.roofline_row(1, 65536, "fft", measured_s=10e-6, chip=h100, precision="full")
+    assert row["bound"] in ("compute", "hbm")
     assert row["sol_us"] > 0
-    assert row["model"] == "calibrated-v5e"
-    assert row["pct_sol_rel_err"] == pytest.approx(0.06)
-    # SoL can never exceed the measured time by definition of pct.
+    assert row["chip"] == "h100" and row["peak_tflops"] == 67.0
     assert row["pct_sol"] == pytest.approx(100.0 * row["sol_us"] / 10.0)
+    cost = roofline.transform_cost(1, 65536, "fft")
+    assert row["sol_us"] == pytest.approx(
+        1e6 * max(cost["flops"] / 67e12, cost["bytes"] / 3350e9)
+    )
 
 
-def test_roofline_row_onchip_vs_hbm_stream():
-    # A config whose tensors fit on chip must NOT be charged HBM rates.
-    small = roofline.roofline_row(1, 65536, "fft", 1e-6, chip=roofline.CHIPS["v5e"])
-    assert small["bound"] != "hbm"
-    # A config far beyond the on-chip capacity streams from HBM.
-    big = roofline.roofline_row(64, 1 << 20, "fft", 1e-3, chip=roofline.CHIPS["v5e"])
-    cost = roofline.transform_cost(64, 1 << 20, "fft")
-    assert cost["bytes"] > 32e6
+def test_roofline_row_peak_follows_precision_mode():
+    # "full" divides by the fp32 peak; the TF32 modes by the TF32 peak, so
+    # their least time is lower for the same compute-bound config.
+    h100 = roofline.CHIPS["h100"]
+    full = roofline.roofline_row(16, 65536, "fft", 1e-3, chip=h100, precision="full")
+    fast = roofline.roofline_row(16, 65536, "fft", 1e-3, chip=h100, precision="fast")
+    assert full["bound"] == "compute"
+    assert full["peak_tflops"] == 67.0 and fast["peak_tflops"] == 495.0
+    assert fast["sol_us"] < full["sol_us"]
+
+
+def test_roofline_row_hbm_bound_when_bytes_dominate():
+    # A huge batch of tiny direct transforms moves more bytes per FLOP than
+    # the card's FLOP/byte ratio at TF32: the HBM wall binds.
+    row = roofline.roofline_row(
+        1 << 16, 8, "fft", 1e-3, chip=roofline.CHIPS["h100"], precision="fast"
+    )
+    assert row["bound"] == "hbm"
+
+
+@pytest.mark.parametrize(
+    "platform,kind,key",
+    [
+        ("gpu", "NVIDIA H100 80GB HBM3", "h100"),
+        ("gpu", "NVIDIA H100 PCIe", "h100"),
+        ("cpu", "cpu", "cpu"),
+    ],
+)
+def test_chip_key_resolves(platform, kind, key):
+    assert roofline.chip_key(platform, kind) == key
+
+
+@pytest.mark.parametrize(
+    "platform,kind", [("gpu", "NVIDIA A100-SXM4-80GB"), ("gpu", ""), ("rocm", "AMD Instinct MI300X")]
+)
+def test_chip_key_unknown_device_raises(platform, kind):
+    with pytest.raises(ValueError, match="no device-table row"):
+        roofline.chip_key(platform, kind)
 
 
 def test_detect_chip_runs():
     chip = roofline.detect_chip()
-    assert chip.hbm_gbps > 0 and chip.bf16_tflops > 0
+    assert chip.name == roofline.device_key()
+    assert chip.hbm_gbps > 0 and chip.fp32_tflops > 0
+
+
+def test_kernel_stats_counts_gpu_launches():
+    # Fusions, library custom calls (cuBLAS) and fft ops (cuFFT) each
+    # count as one launch; operands named "fusion" do not.
+    txt = """
+  %fusion.1 = f32[8]{0} fusion(f32[8]{0} %p0), kind=kLoop, calls=%fused_computation
+  %custom-call.2 = (f32[8,8]{1,0}, s8[4]{0}) custom-call(f32[8,8]{1,0} %a, f32[8,8]{1,0} %b), custom_call_target="__cublas$gemm"
+  %fft.3 = c64[8]{0} fft(c64[8]{0} %fusion.1), fft_type=FFT, fft_length={8}
+  ROOT %tuple = (c64[8]{0}) tuple(c64[8]{0} %fft.3)
+"""
+    st = roofline.kernel_stats(txt)
+    assert (st["n_fusions"], st["n_custom_calls"], st["n_fft"]) == (1, 1, 1)
+    assert st["n_kernels"] == 3
+    assert len(st["fingerprint"]) == 16
 
 
 def test_unknown_kind_raises():

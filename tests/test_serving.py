@@ -1,6 +1,6 @@
 """AOT export / serving artifacts (utils/serving.py).
 
-The TPU-native analog of the reference's per-variant startup shader
+The analog of the reference's per-variant startup shader
 compiles (reference README.md:87-89; warmup() is the in-process analog):
 trace + lower once, serialize, and serve from the artifact with zero
 retracing.  These run on the CPU test mesh; the verify recipe exercises
